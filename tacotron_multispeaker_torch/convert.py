@@ -104,6 +104,26 @@ def state_dict_to_flax(state: dict[str, torch.Tensor], model: nn.Module):
     return out
 
 
+def grads_to_flax(model: nn.Module):
+    """The parameters' ``.grad`` in the flax ``params`` layout (nested dicts
+    of numpy), the tree ``jax.grad`` gives for ``params``; a parameter
+    without a gradient counts as zeros."""
+    params = dict(model.named_parameters())
+    out = {}
+    for key, coll, path, _, to_flax in _leaf_rules(model):
+        if coll != "params":
+            continue
+        g = params[key].grad
+        arr = (np.zeros(tuple(params[key].shape), np.float32) if g is None
+               else g.detach().float().cpu().numpy())
+        arr = to_flax(arr) if to_flax is not None else arr
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return out
+
+
 def _flax_leaves(tree, prefix=()):
     """(collection, path) of every leaf of a nested-dict flax tree."""
     for k, v in tree.items():

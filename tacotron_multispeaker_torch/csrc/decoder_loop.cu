@@ -13,8 +13,9 @@
 // compute type T (bf16 or f32) and sums in f32; the carries stay f32.
 //
 // Design: one block of 512 threads per batch row, all n_steps looped inside
-// the block.  Batch rows are independent once the encoder has run, so no
-// padding and no cross-block traffic.  The carries (attention and decoder
+// the block (device helpers in decoder_common.cuh).  Batch rows are
+// independent once the encoder has run, so no padding and no cross-block
+// traffic.  The carries (attention and decoder
 // GRU states, context, fed-back frame, prenet activations, energies) live
 // in shared memory.  The weights (~1.7 M parameters at full width, 3.4 MB
 // in bf16) do not fit in one SM's shared memory; every step reads them from
@@ -34,15 +35,12 @@
 // most 512 * 16/sizeof(T); weights and rows 16-byte aligned; shared memory
 // (about 4*(8H + 2A + D + P1 + P2 + M + r*M + L + 4096) bytes) <= 227 KB.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "decoder_common.cuh"
 
 namespace {
 
-constexpr int NTHREADS = 512;
-constexpr int NWARPS = NTHREADS / 32;
+using namespace dec;
+
 constexpr int MAX_LAYERS = 4;
 
 template <typename T>
@@ -70,132 +68,12 @@ struct Args {
   int B, L, A, D, H, M, P1, P2, RM, n_layers, n_steps;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ float rnd(float v);
-template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float* w) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* w) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      w[2 * i] = f.x;
-      w[2 * i + 1] = f.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide reduction of one value per thread; every thread gets the result.
-template <bool kMax>
-__device__ float block_reduce(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = kMax ? warp_max(v) : warp_sum(v);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < NWARPS ? scratch[lane] : (kMax ? -INFINITY : 0.f);
-    w = kMax ? warp_max(w) : warp_sum(w);
-    if (lane == 0) scratch[NWARPS] = w;
-  }
-  __syncthreads();
-  const float r = scratch[NWARPS];
-  __syncthreads();
-  return r;
-}
-
-// out[j] (+)= sum_k round(x[k]) * W[k, j] (+ bias[j]) for j < N.  W is
-// [K, N] row-major in T.  Ends with a barrier, so out is ready for all.
-template <typename T>
-__device__ void matvec(const float* __restrict__ x, const T* __restrict__ W, int K, int N,
-                       float* __restrict__ out, const float* __restrict__ bias,
-                       bool accumulate, float* __restrict__ red) {
-  constexpr int VEC = Vec<T>::N;
-  const int ncg = N / VEC;              // 16-byte column groups
-  const int kg = NTHREADS / ncg;        // K split
-  const int tid = threadIdx.x;
-  if (tid < ncg * kg) {
-    const int cg = tid % ncg, kk = tid / ncg;
-    float acc[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-    const T* wp = W + size_t(cg) * VEC;
-#pragma unroll 4
-    for (int k = kk; k < K; k += kg) {
-      const float xk = rnd<T>(x[k]);
-      float w[VEC];
-      Vec<T>::load(wp + size_t(k) * N, w);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = fmaf(xk, w[i], acc[i]);
-    }
-    float* r = red + kk * N + cg * VEC;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) r[i] = acc[i];
-  }
-  __syncthreads();
-  for (int j = tid; j < N; j += NTHREADS) {
-    float s = 0.f;
-    for (int kk = 0; kk < kg; ++kk) s += red[kk * N + j];
-    if (bias != nullptr) s += bias[j];
-    out[j] = accumulate ? out[j] + s : s;
-  }
-  __syncthreads();
-}
-
-// Legacy-TF GRU step on the state h (f32, shared memory); gx [2H] and cx [H]
-// hold the input-side sums (bias included) and are consumed.
-template <typename T>
-__device__ void gru_step(float* h, float* gx, float* cx, const T* whg, const T* whc, int H,
-                         float* rh, float* u, float* red) {
-  matvec<T>(h, whg, H, 2 * H, gx, nullptr, true, red);
-  for (int j = threadIdx.x; j < H; j += NTHREADS) {
-    const float r = sigmoidf(gx[j]);
-    u[j] = sigmoidf(gx[H + j]);
-    rh[j] = r * h[j];
-  }
-  __syncthreads();
-  matvec<T>(rh, whc, H, H, cx, nullptr, true, red);
-  for (int j = threadIdx.x; j < H; j += NTHREADS) {
-    const float c = tanhf(cx[j]);
-    h[j] = u[j] * h[j] + (1.f - u[j]) * c;
-  }
-  __syncthreads();
-}
-
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS) decoder_loop_kernel(const Args<T> a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int VEC = Vec<T>::N;
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int B = a.B, L = a.L, A = a.A, D = a.D, H = a.H, M = a.M;
   const int P1 = a.P1, P2 = a.P2, RM = a.RM, NL = a.n_layers;
 
@@ -250,36 +128,7 @@ __global__ void __launch_bounds__(NTHREADS) decoder_loop_kernel(const Args<T> a)
 
     // ---- Bahdanau attention: f32 energies, masked softmax, context --------
     matvec<T>(attn_h, a.wq, H, A, q, nullptr, false, red);
-    for (int l = warp; l < L; l += NWARPS) {
-      const T* kr = keys + size_t(l) * A;
-      float s = 0.f;
-      for (int a0 = lane * VEC; a0 < A; a0 += 32 * VEC) {
-        float kv[VEC];
-        Vec<T>::load(kr + a0, kv);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) s = fmaf(tanhf(kv[i] + q[a0 + i]), vv[a0 + i], s);
-      }
-      s = warp_sum(s);
-      if (lane == 0) e[l] = mask[l] ? s : -1e9f;
-    }
-    __syncthreads();
-    float m = -INFINITY;
-    for (int l = tid; l < L; l += NTHREADS) m = fmaxf(m, e[l]);
-    m = block_reduce<true>(m, scratch);
-    float s = 0.f;
-    for (int l = tid; l < L; l += NTHREADS) {
-      const float p = mask[l] ? expf(e[l] - m) : 0.f;
-      e[l] = p;
-      s += p;
-    }
-    s = fmaxf(block_reduce<false>(s, scratch), 1e-9f);
-    float* al = a.align + row * L;
-    for (int l = tid; l < L; l += NTHREADS) {
-      const float p = e[l] / s;
-      e[l] = p;
-      al[l] = p;
-    }
-    __syncthreads();
+    attention_softmax<T>(keys, mask, q, vv, L, A, e, a.align + row * L, scratch);
     matvec<T>(e, mem, L, D, ctx, nullptr, false, red);
 
     // ---- dec_in Dense over [attn_h, context] + residual GRU stack ---------

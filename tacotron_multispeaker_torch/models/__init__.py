@@ -1,5 +1,6 @@
 """Model registry (port of ``tacotron_multispeaker_tpu/models/__init__.py``)."""
 
+from .losses import priority_bins, tacotron_loss  # noqa: F401
 from .tacotron import Tacotron, TacotronOutput  # noqa: F401
 
 _MODELS = {"tacotron": Tacotron}

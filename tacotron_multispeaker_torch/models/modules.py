@@ -1,7 +1,9 @@
 """Neural building blocks: prenet, conv bank, highway, GRU, CBHG.
 
-Port of ``tacotron_multispeaker_tpu/models/modules.py`` (inference: the
-BatchNorms run on their running statistics).  Tensors are batch-major
+Port of ``tacotron_multispeaker_tpu/models/modules.py``.  In training mode
+(``module.train()``) the BatchNorms use batch statistics and update their
+running statistics, as flax's ``BatchNorm(use_running_average=not train)``
+does; in eval mode they use the running statistics.  Tensors are batch-major
 [B, T, C] as in the JAX package; convolutions transpose to PyTorch's
 [B, C, T] internally.  Semantics follow the TF1 lineage: conv1d is
 conv → activation → batch-norm (eps 1e-3), highway gates have bias init −1,
@@ -49,10 +51,16 @@ class Dense(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis with flax's parameter names
+    """BatchNorm over the last axis with flax's parameter names
     (``scale``/``bias`` parameters, ``mean``/``var`` running statistics)
-    and its arithmetic order.  Training-mode statistics come with the
-    training slice."""
+    and its arithmetic (flax 0.12 ``_compute_stats`` with
+    ``use_fast_variance``).  Training mode: mean and E[x²] reduced in f32
+    over every axis but the last, pad frames included; var = E[x²] − mean²
+    clipped at 0; running statistics ``0.99·old + 0.01·batch`` with the
+    biased var (``F.batch_norm`` would store the unbiased one, hence the
+    update written out)."""
+
+    momentum = 0.99   # flax BatchNorm(momentum=0.99) in every layer of the model
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
                  eps: float = 1e-3):
@@ -65,8 +73,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.float() - self.mean
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = xf - mean
+        mul = torch.rsqrt(var + self.eps) * self.scale
         return (y * mul + self.bias).to(self.compute_dtype)
 
 
@@ -225,7 +244,8 @@ class GRU(nn.Module):
 
 class BiGRU(nn.Module):
     """Bidirectional GRU, outputs concatenated: [B, T, 2F].  Both
-    directions run in ONE fused scan (ops/gru_scan.bigru_scan)."""
+    directions run in ONE fused scan, differentiable
+    (ops/gru_scan.BiGRUScan)."""
 
     def __init__(self, in_dim: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -244,9 +264,9 @@ class BiGRU(nn.Module):
             [a.transpose(0, 1), b.transpose(0, 1)], dim=1).contiguous()
         h0 = torch.zeros((2, B, self.features), dtype=torch.float32,
                          device=xs.device)
-        ys = gru_scan.bigru_scan(stack(xg_f, xg_b), stack(xc_f, xc_b),
-                                 torch.stack([whg_f, whg_b]).contiguous(),
-                                 torch.stack([whc_f, whc_b]).contiguous(), h0)
+        ys = gru_scan.BiGRUScan.apply(stack(xg_f, xg_b), stack(xc_f, xc_b),
+                                      torch.stack([whg_f, whg_b]).contiguous(),
+                                      torch.stack([whc_f, whc_b]).contiguous(), h0)
         mask = (torch.arange(T, device=xs.device)[None, :]
                 < lengths.to(xs.device)[:, None])[..., None]
         ys_f = torch.where(mask, ys[:, 0].transpose(0, 1), 0.0)

@@ -3,15 +3,23 @@
 Port of ``tacotron_multispeaker_tpu/models/tacotron.py``: char embedding →
 [speaker conditioning] → prenet → encoder CBHG → attention GRU decoder
 emitting r mel frames per step → post-net CBHG → linear spectrogram
-projection.  ``generate`` runs the whole autoregressive decode as one fused
-decoder loop (ops/decoder_loop.py) and both CBHG BiGRUs as fused scans
+projection.  ``forward`` is the teacher-forced training path: the decoder
+runs as one fused differentiable scan (ops/teacher_decoder.py).  ``generate``
+runs the whole autoregressive decode as one fused decoder loop
+(ops/decoder_loop.py).  Both CBHG BiGRUs are fused differentiable scans
 (ops/gru_scan.py).  Module and parameter names mirror the flax tree, so
-convert.py maps one onto the other by name.  The teacher-forced training
-path comes with the training slice.
+convert.py maps one onto the other by name.
+
+``self.training`` plays the part of flax's ``train`` flag for the
+BatchNorms (batch statistics and running-statistic updates in training
+mode); ``generate`` always uses the running statistics, as the JAX
+package's ``generate(train=False)`` default does.  Prenet dropout is on in
+both modes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -20,8 +28,10 @@ from torch import nn
 
 from ..config import Config
 from ..ops import decoder_loop as dl_ops
+from ..ops import teacher_decoder as td_ops
 from ..text import vocab_size
 from .attention import make_attention
+from .helpers import teacher_inputs
 from .modules import CBHG, BatchNorm, ConvBank, Dense, GRUCellParams, Prenet
 
 
@@ -98,8 +108,8 @@ class DecoderCell(nn.Module):
 
 
 class Tacotron(nn.Module):
-    """The full model; ``generate`` is the fused autoregressive inference
-    path."""
+    """The full model; ``forward`` is the teacher-forced training path,
+    ``generate`` the fused autoregressive inference path."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -224,7 +234,89 @@ class Tacotron(nn.Module):
             l_hg=tuple(k(c.hg) for c in rnns), l_hc=tuple(k(c.hc) for c in rnns),
             wf=k(cell.frame_proj), bf=cell.frame_proj.bias).cast(self.dtype)
 
+    # -- teacher-forced training path ---------------------------------------
+
+    def _teacher_weights(self):
+        """(TeacherDecoderWeights, w_pn [P2, 3H], b_pn [3H]) built as the
+        JAX package's ``teacher_mel`` builds them: the prenet halves of the
+        attention-GRU input projections merged for one batched matmul, the
+        three context-consuming projections merged into ``w_ctx`` [D, 4H]
+        ([dec_in ctx | attn xg ctx | attn xc ctx]), each residual GRU's two
+        input projections merged into ``w_r`` [H, 3H].  Differentiable: the
+        gradients flow back to the module parameters."""
+        m, dt = self.cfg.model, self.dtype
+        P2, H = m.prenet_depths[-1], m.decoder_depth
+        cell = self.decoder_cell
+        k = lambda lin: lin.weight.t().to(dt)
+        bias = lambda lin: lin.bias.to(dt)
+        wxg, wxc, wd = k(cell.attn_rnn.xg), k(cell.attn_rnn.xc), k(cell.dec_in)
+        w_pn = torch.cat([wxg[:P2], wxc[:P2]], dim=1)
+        b_pn = torch.cat([bias(cell.attn_rnn.xg), bias(cell.attn_rnn.xc)])
+        rnns = cell.dec_rnns
+        weights = td_ops.TeacherDecoderWeights(
+            a_hg=k(cell.attn_rnn.hg), a_hc=k(cell.attn_rnn.hc),
+            wq=k(self.attention.query), v=self.attention.v,
+            w_ctx=torch.cat([wd[H:], wxg[P2:], wxc[P2:]], dim=1),
+            wd_h=wd[:H], d_b=bias(cell.dec_in),
+            w_r=tuple(torch.cat([k(c.xg), k(c.xc)], dim=1) for c in rnns),
+            b_r=tuple(torch.cat([bias(c.xg), bias(c.xc)]) for c in rnns),
+            hg=tuple(k(c.hg) for c in rnns), hc=tuple(k(c.hc) for c in rnns))
+        return weights.cast(dt), w_pn, b_pn
+
+    def teacher_mel(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
+                    mel_targets: torch.Tensor, speaker_ids: torch.Tensor | None = None,
+                    generator: torch.Generator | None = None):
+        """Encoder + teacher-forced decoder to mel (no post-net) →
+        (mel [B, T, M] f32, alignments [B, T/r, L] f32)."""
+        m = self.cfg.model
+        B, L = inputs.shape
+        T, M = mel_targets.shape[1], self.cfg.audio.num_mels
+        H = m.decoder_depth
+        dev = inputs.device
+        spk = self._speaker_embed(speaker_ids)
+        memory = self.encoder(inputs, input_lengths, spk, generator).contiguous()
+        keys = self.attention.precompute_keys(memory).contiguous()
+        mask = (torch.arange(L, device=dev)[None, :]
+                < input_lengths.to(dev)[:, None]).contiguous()
+        dec_in = teacher_inputs(mel_targets, m.outputs_per_step)         # [B, S, M]
+        prenet_out = self.dec_prenet(dec_in.to(self.dtype), generator)
+        attn_h0, dec_h0 = self._init_carry(B, spk, dev)
+        weights, w_pn, b_pn = self._teacher_weights()
+        pn_proj = prenet_out @ w_pn + b_pn                               # [B, S, 3H]
+        png = pn_proj[..., :2 * H].transpose(0, 1).contiguous()
+        pnc = pn_proj[..., 2 * H:].transpose(0, 1).contiguous()
+        xs, aligns = td_ops.teacher_decoder(png, pnc, attn_h0, dec_h0, weights, keys,
+                                            memory, mask)
+        frames = self.decoder_cell.frame_proj(xs.transpose(0, 1)).float()  # [B, S, r*M]
+        return frames.reshape(B, T, M), aligns.transpose(0, 1)
+
+    def forward(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
+                mel_targets: torch.Tensor, speaker_ids: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> TacotronOutput:
+        """Teacher-forced pass (flax ``Tacotron.__call__``).  The post-net
+        sees every one of the T frames of every row (target_lengths = T),
+        not the batch's lengths, as in the JAX package."""
+        mel_out, aligns = self.teacher_mel(inputs, input_lengths, mel_targets,
+                                           speaker_ids, generator)
+        B, T = mel_out.shape[:2]
+        target_lengths = torch.full((B,), T, dtype=torch.long, device=mel_out.device)
+        linear_out = self._postnet(mel_out, target_lengths)
+        return TacotronOutput(mel_out, linear_out, aligns)
+
     # -- autoregressive inference path --------------------------------------
+
+    @contextlib.contextmanager
+    def _running_statistics(self):
+        """BatchNorms on their running statistics whatever ``self.training``
+        says; their modes come back afterwards."""
+        norms = [(mod, mod.training) for mod in self.modules() if isinstance(mod, BatchNorm)]
+        for mod, _ in norms:
+            mod.training = False
+        try:
+            yield
+        finally:
+            for mod, was in norms:
+                mod.training = was
 
     def generate(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                  speaker_ids: torch.Tensor | None = None,
@@ -240,9 +332,10 @@ class Tacotron(nn.Module):
         n_steps = max_iters if max_iters is not None else m.max_iters
         dev = inputs.device
 
-        spk = self._speaker_embed(speaker_ids)
-        memory = self.encoder(inputs, input_lengths, spk, generator).contiguous()
-        keys = self.attention.precompute_keys(memory).contiguous()
+        with self._running_statistics():
+            spk = self._speaker_embed(speaker_ids)
+            memory = self.encoder(inputs, input_lengths, spk, generator).contiguous()
+            keys = self.attention.precompute_keys(memory).contiguous()
         mask = (torch.arange(L, device=dev)[None, :]
                 < input_lengths.to(dev)[:, None]).contiguous()
         attn_h0, dec_h0 = self._init_carry(B, spk, dev)
@@ -261,5 +354,6 @@ class Tacotron(nn.Module):
             attn_h0, dec_h0, n_steps, M)
         mel_out = frames.transpose(0, 1).reshape(B, n_steps * r, M)
         target_lengths = torch.full((B,), n_steps * r, dtype=torch.long, device=dev)
-        linear_out = self._postnet(mel_out, target_lengths)
+        with self._running_statistics():
+            linear_out = self._postnet(mel_out, target_lengths)
         return TacotronOutput(mel_out, linear_out, aligns.transpose(0, 1))

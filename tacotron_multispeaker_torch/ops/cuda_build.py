@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers, so a
 build takes seconds).  At first use it is compiled for ``sm_90a`` into
 ``tacotron_multispeaker_torch/build/<name>-<hash>.so``, keyed by a hash of
-the source and the flags, and loaded.  ``nvcc -Xptxas -v`` reports each
-kernel's registers, shared memory and spills; the report is kept beside the
-library (``.log``) and in :data:`build_info`.
+the source, the shared headers (``csrc/*.cuh``) and the flags, and loaded.
+``nvcc -Xptxas -v`` reports each kernel's registers, shared memory and
+spills; the report is kept beside the library (``.log``) and in
+:data:`build_info`.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -56,7 +57,8 @@ def _lock_for(name: str) -> threading.Lock:
 
 def _build(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     so = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     log = so.with_suffix(".log")
     if so.exists():
