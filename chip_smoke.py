@@ -11,21 +11,26 @@ Phases (no failure is caught; any exception exits non-zero):
    with nvcc (in parallel) and prints the build seconds and ptxas register,
    shared memory and spill lines.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   serving and training paths' shapes, in float32 (contractive weights,
-   modest step counts) and bfloat16, every output by name, and times kernel
-   and plain version.
-4. Checks the whole generate path at full-width ``multispeaker_vctk``,
-   dropout off: in float32 on the card against the plain path on the CPU,
-   and in bfloat16 (the serving precision) on the card with the kernels
-   against the same run with their plain versions swapped in.
+   serving and training paths' shapes, in float32 and bfloat16, every
+   output by name, and times kernel, plain version and, where one PyTorch
+   call computes the same function, that call (``library_ms``).
+4. Checks ``generate`` at full-width ``multispeaker_vctk``, dropout off: in
+   float32 on the card against the plain path on the CPU (the default and
+   the location-attention path), and in bfloat16 (the serving precision)
+   on the card with the kernels against the same run with their plain
+   versions swapped in (all three serving paths).
 5. Serves through ``Synthesizer`` at full-width ``multispeaker_vctk`` with
-   random weights from a seed: ``warmup()``, B=1 ``synthesize()`` requests
-   over both input buckets and several speakers, one B=32 batch of 200
-   decoder steps.  Each request must launch ``bigru_scan`` twice (encoder
-   and post-net CBHG) and ``decoder_loop`` once.
-
-6. Where the time goes: a profile of a B=1 request, the B=32 batch and
-   one full-width train step (device busy, idle share, top kernels).
+   random weights from a seed, on each serving path of ``PATHS``: ``serve``
+   (the defaults), ``serve_pallas`` (``parallel.use_pallas``: the conv-bank
+   and Griffin-Lim kernels) and ``serve_location`` (location attention
+   through the per-step decode with the attention-step kernel, exact
+   Griffin-Lim with the overlap-add kernel): ``warmup()``, B=1
+   ``synthesize()`` requests over both input buckets and several speakers,
+   one B=32 batch of 200 decoder steps, each with its exact launches of
+   every kernel (``path_launches``).
+6. Where the time goes: a profile of a B=1 request and the B=32 batch on
+   each serving path and of one full-width train step (device busy, idle
+   share, top kernels).
 7. Trains: one full-width ``multispeaker_vctk`` step in float32 (dropout
    off, B=2, short lengths) on the card against the same step on the CPU
    plain path (loss, grad norm, every gradient leaf, the updated running
@@ -34,11 +39,11 @@ Phases (no failure is caught; any exception exits non-zero):
    width (B=32, L=192, T=1000, bf16) with the launches of every kernel
    checked per step.
 
-Each path (serving, training) is driven with every launch count set to 0
-just before it and read just after.  Prints the per-request and per-step
-times, one ``kernels`` JSON line (each kernel's time, plain time, bound,
-launches on its path's run), and as its last line ``{"ok": true,
-"device": {...}}``.
+Each path (three serving paths, training) is driven with every launch
+count set to 0 just before it and read just after.  Prints the per-request
+and per-step times, one ``kernels`` JSON line (each kernel's time, plain
+time, library time, bound, launches on each path's run), and as its last
+line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -90,14 +95,20 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def _counters():
     """kernel name -> (module, attribute) of its launch count."""
-    from tacotron_multispeaker_torch.ops import decoder_loop, gru_scan, teacher_decoder, wgrad
+    from tacotron_multispeaker_torch.ops import (attention_step, conv_bank, decoder_loop,
+                                                 gl_iteration, gru_scan, overlap_add,
+                                                 teacher_decoder, wgrad)
     return {"bigru_scan": (gru_scan, "launches"),
             "decoder_loop": (decoder_loop, "launches"),
             "bigru_scan_bwd": (gru_scan, "bwd_launches"),
             "teacher_decoder_fwd": (teacher_decoder, "fwd_launches"),
             "dkeys": (teacher_decoder, "dkeys_launches"),
             "teacher_decoder_bwd": (teacher_decoder, "bwd_launches"),
-            "wgrad": (wgrad, "launches")}
+            "wgrad": (wgrad, "launches"),
+            "conv_bank": (conv_bank, "launches"),
+            "attention_step": (attention_step, "launches"),
+            "overlap_add": (overlap_add, "launches"),
+            "gl_iteration": (gl_iteration, "launches")}
 
 
 def reset_counts() -> None:
@@ -399,14 +410,19 @@ def _teacher_case(B, L, S, dtype, seed, scale=0.05, H=256, A=256, D=320, N=2):
 
 
 class plain_kernels:
-    """Swap every training and serving kernel wrapper for its plain version
-    (which runs on CUDA tensors too) inside the block."""
+    """Swap every kernel wrapper that the model's forward and generate reach
+    for its plain version (which runs on CUDA tensors too) inside the block;
+    the Griffin-Lim kernels are held against theirs in their own phases."""
 
     def __enter__(self):
         from tacotron_multispeaker_torch.ops import decoder_loop as dl
         from tacotron_multispeaker_torch.ops import gru_scan as gs
         from tacotron_multispeaker_torch.ops import teacher_decoder as td
-        self.swaps = [(gs, "bigru_scan", gs.bigru_scan_reference),
+        from tacotron_multispeaker_torch.ops import attention_step as ast
+        from tacotron_multispeaker_torch.ops import conv_bank as cb
+        self.swaps = [(cb, "conv_bank", cb.conv_bank_reference),
+                      (ast, "attention_step", ast.attention_step_reference),
+                      (gs, "bigru_scan", gs.bigru_scan_reference),
                       (gs, "bigru_scan_bwd", gs.bigru_scan_bwd_reference),
                       (dl, "decoder_loop", dl.decoder_loop_reference),
                       (td, "teacher_decoder_fwd", td.teacher_decoder_fwd_reference),
@@ -571,6 +587,288 @@ def phase_teacher(bigru_wgrad_err):
 
 
 # --------------------------------------------------------------------------
+# phase 3 (kernel-gated serving): the four kernels behind parallel.use_pallas
+# --------------------------------------------------------------------------
+
+# (B, T, D, K, C) of the B=32 batch's two conv banks: the encoder's (prenet
+# width 128 in, widths 1..16 of 128 channels) and the post-net's (80 mels
+# in, widths 1..8 of 128 channels over 5 * 200 frames)
+CONV_BANK_SHAPES = {"encoder": (32, 192, 128, 16, 128), "post-net": (32, 1000, 80, 8, 128)}
+
+
+def _conv_bank_case(B, T, D, K, C, dtype, seed):
+    import torch
+    from tacotron_multispeaker_torch.models.modules import _bank_mask
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mask = torch.from_numpy(_bank_mask(K, C)).cuda()
+    x = torch.randn(B, T, D, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(K, D, K * C, generator=g, device="cuda") * (K * D) ** -0.5 * mask)
+    b = torch.randn(K * C, generator=g, device="cuda") * 0.1
+    return x, w.to(dtype), b.to(dtype)
+
+
+def phase_conv_bank():
+    import torch
+    import torch.nn.functional as F
+    from tacotron_multispeaker_torch.ops import conv_bank as cb
+    # f32: the same products summed in another order -> 1e-5 of the peak.
+    # bf16: the products are exact in f32; the f32 sum-order difference
+    # (the f32 allowance, 1e-5 of the peak) can move the one final rounding
+    # by one ulp (at most 2^-7 of the value)
+    worst = 0.0
+    for label, (B, T, D, K, C) in CONV_BANK_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, b = _conv_bank_case(B, T, D, K, C, dtype, seed=K)
+            with torch.inference_mode():
+                y, ref = cb.conv_bank(x, w, b), cb.conv_bank_reference(x, w, b)
+            torch.cuda.synchronize()
+            err = _rel_err(y, ref)
+            if dtype == torch.float32:
+                ok, tol = err <= 1e-5, "1e-5 of the peak"
+            else:
+                peak = ref.float().abs().max().item()
+                ok = bool(((y.float() - ref.float()).abs()
+                           <= 2 ** -7 * ref.float().abs() + 1e-5 * peak).all())
+                tol = "one bf16 ulp per element + 1e-5 of the peak"
+            log(f"[conv_bank] {label} B={B} T={T} D={D} K={K} O={K * C} {str(dtype)[6:]}: "
+                f"max|kernel-plain|/max|plain| {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"conv_bank disagrees with its plain version: {label}")
+            worst = max(worst, err)
+    ms = plain_ms = lib_ms = bound_s = 0.0
+    for label, (B, T, D, K, C) in CONV_BANK_SHAPES.items():
+        x, w, b = _conv_bank_case(B, T, D, K, C, torch.bfloat16, seed=K + 1)
+        xp = F.pad(x.transpose(1, 2), ((K - 1) // 2, K // 2)).contiguous()
+        wt = w.permute(2, 1, 0).contiguous()
+        with torch.inference_mode():
+            k_ms = cuda_time_ms(lambda: cb.conv_bank(x, w, b), reps=20)
+            p_ms = cuda_time_ms(lambda: cb.conv_bank_reference(x, w, b), reps=5)
+            l_ms = cuda_time_ms(lambda: F.conv1d(xp, wt, b), reps=20)
+        O = K * C
+        bound = _bound_ms(_nbytes(x, w, b) + B * T * O * 2, bf16_flops=2 * B * T * D * K * O)
+        log(f"[conv_bank] {label} B={B} T={T} D={D} K={K} O={O} bf16: kernel {k_ms:.3f} ms, "
+            f"plain {p_ms:.3f} ms, F.conv1d {l_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        ms, plain_ms, lib_ms, bound_s = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms, bound_s + bound[0]
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_s, "bound_by": "operations",
+            "shape": "both banks of a B=32 batch, summed: encoder B=32 T=192 D=128 K=16 "
+                     "O=2048 + post-net B=32 T=1000 D=80 K=8 O=1024, bf16",
+            "error": "max |kernel - plain| / max |plain|, f32 and bf16"}
+
+
+def _attention_case(B, L, A, D, dtype, seed, loc=True):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s, sc=1.0: (torch.randn(*s, generator=g, device="cuda") * sc).to(dtype)
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device="cuda")
+    lengths[0] = L
+    mask = (torch.arange(L, device="cuda")[None, :] < lengths[:, None]).contiguous()
+    return (rn(B, L, A, sc=0.5), rn(B, A, sc=0.5), rn(A, sc=A ** -0.5), rn(B, L, D), mask,
+            rn(B, L, A, sc=0.3) if loc else None)
+
+
+def phase_attention_step():
+    import torch
+    from tacotron_multispeaker_torch.ops import attention_step as ast
+    B, L, A, D = 32, 192, 256, 320
+    # (alignments, context) absolute.  f32: the same arithmetic in another
+    # sum order.  bf16: both sides round act after each add and after tanh;
+    # CUDA's tanhf and torch's tanh may differ by an f32 ulp, which can flip
+    # one bf16 rounding (2^-8 of an act element) and move an energy by
+    # ~|v|*2^-8 -> alignments 1e-3, context 1e-2 (|memory| ~ 3)
+    tol = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-3, 1e-2)}
+    worst = 0.0
+    for loc in (True, False):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _attention_case(B, L, A, D, dtype, seed=31 + loc, loc=loc)
+            ctx, al = ast.attention_step(*args)
+            ctx_r, al_r = ast.attention_step_reference(*args)
+            torch.cuda.synchronize()
+            e_al = (al - al_r).abs().max().item()
+            e_ctx = (ctx - ctx_r).abs().max().item()
+            ta, tc = tol[dtype]
+            log(f"[attention_step] B={B} L={L} A={A} D={D} {str(dtype)[6:]} "
+                f"{'with' if loc else 'without'} location term: align {e_al:.3e} (tol "
+                f"{ta:.0e}) ctx {e_ctx:.3e} (tol {tc:.0e})")
+            if not (e_al <= ta and e_ctx <= tc and torch.all(al[~args[4]] == 0.0)):
+                raise AssertionError("attention_step disagrees with its plain version")
+            worst = max(worst, e_al, e_ctx)
+    args = _attention_case(B, L, A, D, torch.bfloat16, seed=33)
+    ms = cuda_time_ms(lambda: ast.attention_step(*args), reps=50)
+    plain_ms = cuda_time_ms(lambda: ast.attention_step_reference(*args), reps=10)
+    bound = _bound_ms(_nbytes(*args) + B * (D + L) * 4)
+    args1 = _attention_case(1, 96, A, D, torch.bfloat16, seed=34)
+    ms1 = cuda_time_ms(lambda: ast.attention_step(*args1), reps=50)
+    log(f"[attention_step] B={B} L={L} A={A} D={D} bf16 with location term: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
+        f"B=1 L=96: kernel {ms1:.4f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "shape": f"B={B} L={L} A={A} D={D} bf16, location term",
+            "error": "alignments and context absolute, f32 and bf16, with and without "
+                     "the location term"}
+
+
+def _window(n_fft=2048, win_length=1102):
+    import torch
+    from tacotron_multispeaker_torch.audio.dsp import hann_window
+    return torch.from_numpy(hann_window(win_length, n_fft)).cuda()
+
+
+def phase_overlap_add():
+    import torch
+    from tacotron_multispeaker_torch.ops import overlap_add as ola
+    B, F, n_fft, hop = 32, 1000, 2048, 275
+    win = _window()
+    g = torch.Generator(device="cuda").manual_seed(41)
+    # window, sums and norm f32 on both sides, whatever the frames' type:
+    # the <= 8 frames of a sample summed in another order -> 1e-5 of the peak
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        frames = torch.randn(B, F, n_fft, generator=g, device="cuda").to(dtype)
+        out, ref = ola.overlap_add(frames, win, hop), ola.overlap_add_plain(frames, win, hop)
+        torch.cuda.synchronize()
+        err = _rel_err(out, ref)
+        log(f"[overlap_add] B={B} F={F} n_fft={n_fft} hop={hop} {str(dtype)[6:]} frames: "
+            f"max|kernel-plain|/max|plain| {err:.3e} (tol 1e-5)")
+        if not err <= 1e-5:
+            raise AssertionError("overlap_add disagrees with its plain version")
+        worst = max(worst, err)
+    frames = torch.randn(B, F, n_fft, generator=g, device="cuda")
+    ms = cuda_time_ms(lambda: ola.overlap_add(frames, win, hop), reps=20)
+    plain_ms = cuda_time_ms(lambda: ola.overlap_add_plain(frames, win, hop), reps=5)
+    bound = _bound_ms(_nbytes(frames, win) + B * (n_fft + hop * (F - 1)) * 4)
+    f1 = torch.randn(1, F, n_fft, generator=g, device="cuda")
+    ms1 = cuda_time_ms(lambda: ola.overlap_add(f1, win, hop), reps=20)
+    log(f"[overlap_add] B={B} F={F} n_fft={n_fft} hop={hop} f32: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}); B=1: kernel {ms1:.4f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "shape": f"B={B} F={F} n_fft={n_fft} hop={hop} f32 frames",
+            "error": "max |kernel - plain| / max |plain|, f32 and bf16 frames"}
+
+
+def _gl_case(B, F, seed, n_fft=2048, hop=275, broadband=False):
+    """A magnitude [B, F, bins] and initial frames [B, F, n_fft] from random
+    phases (irfft, overlap-add, re-framing with the window), as Griffin-Lim
+    starts.  The magnitude is a harmonic test signal's (f0 from 100 Hz up,
+    8 harmonics at 22.05 kHz: most bins near zero), or with ``broadband``
+    |randn| in every bin (every bin carries weight in an elementwise check).
+    torch.fft makes this test data only."""
+    import math
+    import torch
+    from tacotron_multispeaker_torch.ops.overlap_add import overlap_add_plain
+    win = _window(n_fft)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if broadband:
+        mag = torch.randn((B, F, n_fft // 2 + 1), generator=g, device="cuda").abs()
+    else:
+        t = torch.arange(n_fft + hop * (F - 1), device="cuda") / 22050.0
+        f0 = 100.0 + 7.0 * torch.arange(B, device="cuda")[:, None]
+        y = sum(torch.sin(2 * math.pi * k * f0 * t) / k for k in range(1, 9))
+        mag = torch.fft.rfft(y.unfold(-1, n_fft, hop) * win).abs().float().contiguous()
+    phase = (torch.rand(mag.shape, generator=g, device="cuda") * 2 - 1) * math.pi
+    sig = overlap_add_plain(torch.fft.irfft(torch.polar(mag, phase), n=n_fft), win, hop)
+    wf0 = (sig.unfold(-1, n_fft, hop) * win).contiguous()
+    return wf0, mag, win
+
+
+def _spectral_convergence(sre, sim, mag, win, hop):
+    """||STFT(y)| - mag| / |mag| of the signal y the spectrum (sre, sim)
+    gives (irfft, overlap-add), as Griffin-Lim's output is made."""
+    import torch
+    from tacotron_multispeaker_torch.ops.overlap_add import overlap_add_plain
+    n_fft = win.shape[0]
+    y = overlap_add_plain(torch.fft.irfft(torch.complex(sre, sim), n=n_fft), win, hop)
+    st = torch.fft.rfft(y.unfold(-1, n_fft, hop) * win).abs()
+    return ((st - mag).norm() / mag.norm()).item()
+
+
+def phase_gl_iteration():
+    import torch
+    from tacotron_multispeaker_torch.ops import gl_iteration as gl
+    B, F, n_fft, hop = 32, 1000, 2048, 275
+    mom = 0.99 / 1.99
+    # two iterations elementwise on a broadband magnitude (every bin of
+    # every output near the same scale, peak ~7x the RMS).  Per output and
+    # dtype: (a) the elements off by more than `peak` of the output's peak,
+    # at most `share` of them; (b) the norm-wise error ||k-p||/||p|| within
+    # `bulk`, which a kernel wrong on one frame of the 32000 already fails
+    # (a frame is 3e-5 of the elements, ~8e-3 of the norm).  f32: the same
+    # arithmetic in another sum order, amplified where |S| ~ 0: no element
+    # past 1e-3 of the peak (worst 2.0e-4 on the H100), norm 1e-5 (1.2e-6).
+    # bf16: a flipped rounding turns the phase of a bin where |S| ~ 0
+    # (chaotic, as the JAX test says): 5 and 7 of sre's and sim's 3.28e7
+    # elements pass the JAX package's 3e-2 of the peak, so at most 1e-6 of
+    # them may (32 elements); norm 3e-3 (3.1e-4 on the H100)
+    tol = {torch.float32: (1e-3, 0.0, 1e-5), torch.bfloat16: (3e-2, 1e-6, 3e-3)}
+    wf0, mag, win = _gl_case(B, F, seed=51, broadband=True)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        w0 = wf0.to(dtype)
+        out = gl.gl_fast_iterations(w0, mag, win, hop, 2, mom)
+        ref = gl.gl_fast_iterations_reference(w0, mag, win, hop, 2, mom)
+        torch.cuda.synchronize()
+        names = ("sre", "sim", "pre", "pim")
+        peak, share, bulk_tol = tol[dtype]
+        errs, over, bulk = {}, {}, {}
+        for n, a, b in zip(names, out, ref):
+            e = (a - b).abs()
+            errs[n] = (e.max() / b.abs().max()).item()
+            over[n] = int((e > peak * b.abs().max()).sum())
+            bulk[n] = (e.norm() / b.norm()).item()
+        n_max = int(share * out[0].numel())
+        log(f"[gl_iteration] B={B} F={F} n_fft={n_fft} hop={hop} 2 iterations "
+            f"{str(dtype)[6:]}, broadband: max|kernel-plain|/max|plain| "
+            + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f"; elements past {peak:.0e} of the peak "
+            + " ".join(f"{n} {c}" for n, c in over.items()) + f" (at most {n_max}); "
+            "||kernel-plain||/||plain|| "
+            + " ".join(f"{n} {e:.3e}" for n, e in bulk.items()) + f" (tol {bulk_tol:.0e})")
+        if not (max(over.values()) <= n_max and max(bulk.values()) <= bulk_tol):
+            raise AssertionError("gl_iteration disagrees with its plain version")
+        worst = max(worst, *errs.values())
+        del out, ref
+    # the serving path's 12 fast bf16 iterations on the harmonic signal: the
+    # phase estimates of the two diverge in detail, so they are held by what
+    # Griffin-Lim minimises, the spectral convergence of the signal each
+    # gives: within 10% of each other, and both well below the random-phase
+    # start
+    wf0, mag, win = _gl_case(B, F, seed=51)
+    w0 = wf0.to(torch.bfloat16)
+    sc0 = ((torch.fft.rfft(wf0).abs() - mag).norm() / mag.norm()).item()
+    out = gl.gl_fast_iterations(w0, mag, win, hop, 12, mom)
+    ref = gl.gl_fast_iterations_reference(w0, mag, win, hop, 12, mom)
+    sc_k = _spectral_convergence(out[0], out[1], mag, win, hop)
+    sc_p = _spectral_convergence(ref[0], ref[1], mag, win, hop)
+    log(f"[gl_iteration] B={B} F={F} 12 iterations bf16: spectral convergence kernel "
+        f"{sc_k:.4f}, plain {sc_p:.4f} (within 10% of each other), random-phase start "
+        f"{sc0:.4f}")
+    if not (abs(sc_k - sc_p) <= 0.1 * sc_p and sc_k < 0.5 * sc0):
+        raise AssertionError("12 kernel Griffin-Lim iterations do not converge as the plain ones")
+    del out, ref
+    ms = cuda_time_ms(lambda: gl.gl_fast_iterations(w0, mag, win, hop, 12, mom), reps=3)
+    plain_ms = cuda_time_ms(
+        lambda: gl.gl_fast_iterations_reference(w0, mag, win, hop, 12, mom), reps=1)
+    # 12 forward DFT pairs and 11 inverse ones (the last iteration's frames
+    # are not needed), each pair 2 products of 2·F·n_fft·bins operations
+    bins = n_fft // 2 + 1
+    bound = _bound_ms(_nbytes(w0, mag, win) + 4 * B * F * bins * 4,
+                      bf16_flops=(2 * 12 - 1) * 4 * B * F * n_fft * bins)
+    w1, m1, _ = _gl_case(1, F, seed=52)
+    w1 = w1.to(torch.bfloat16)
+    ms1 = cuda_time_ms(lambda: gl.gl_fast_iterations(w1, m1, win, hop, 12, mom), reps=3)
+    log(f"[gl_iteration] B={B} F={F} n_fft={n_fft} hop={hop} 12 iterations bf16: kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}); B=1: "
+        f"kernel {ms1:.3f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "shape": f"B={B} F={F} n_fft={n_fft} hop={hop}, 12 iterations, bf16",
+            "error": "max |kernel - plain| / max |plain| over sre/sim/pre/pim after 2 "
+                     "iterations on a broadband magnitude, f32 and bf16 (held by the share "
+                     "of elements past the limit and the norm-wise error); 12 iterations by "
+                     "spectral convergence"}
+
+
+# --------------------------------------------------------------------------
 # phase 7: training
 # --------------------------------------------------------------------------
 
@@ -698,7 +996,8 @@ def phase_train_bf16():
 
 TRAIN_LAUNCHES = {"bigru_scan": 2, "decoder_loop": 0, "bigru_scan_bwd": 2,
                   "teacher_decoder_fwd": 1, "dkeys": 1, "teacher_decoder_bwd": 1,
-                  "wgrad": 3}
+                  "wgrad": 3, "conv_bank": 0, "attention_step": 0, "overlap_add": 0,
+                  "gl_iteration": 0}
 
 
 def phase_train():
@@ -753,16 +1052,47 @@ def phase_train():
 
 
 # --------------------------------------------------------------------------
-# phase 4: the generate path on the card against the plain path on the CPU
+# phase 4: the generate paths on the card against the plain paths
 # --------------------------------------------------------------------------
 
-def phase_generate_reference():
+# the serving paths: overrides on multispeaker_vctk
+PATHS = {
+    "serve": "",
+    "serve_pallas": "parallel.use_pallas=true",
+    "serve_location": "parallel.use_pallas=true,model.attention_type=location,"
+                      "audio.gl_method=dft_f32,audio.griffin_lim_iters=60,"
+                      "audio.gl_momentum=0.0",
+}
+
+
+def path_launches(path, cfg, n_steps):
+    """Each kernel's launches for one request (or batch) of ``n_steps``
+    decoder steps on a serving path."""
+    want = {name: 0 for name in _counters()}
+    want["bigru_scan"] = 2                       # encoder and post-net CBHG
+    if path == "serve_location":
+        want.update(conv_bank=2, attention_step=n_steps,
+                    overlap_add=cfg.audio.griffin_lim_iters + 1)
+    else:
+        want["decoder_loop"] = 1
+    if path == "serve_pallas":
+        want.update(conv_bank=2, gl_iteration=1)
+    return want
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in read_counts().items()}
+
+
+def phase_generate_reference(path="serve"):
+    """f32 generate (dropout off) at full width on the card against the
+    plain path on the CPU, from the same weights."""
     import numpy as np
     import torch
     from tacotron_multispeaker_torch.config import get_config
     from tacotron_multispeaker_torch.models import create_model
-    cfg = get_config("multispeaker_vctk",
-                     "model.compute_dtype=float32,model.prenet_dropout=0.0")
+    ov = "model.compute_dtype=float32,model.prenet_dropout=0.0"
+    cfg = get_config("multispeaker_vctk", ov + ("," + PATHS[path] if PATHS[path] else ""))
     model = create_model("tacotron", cfg).reset_parameters(
         torch.Generator().manual_seed(1)).eval()
     rs = np.random.RandomState(0)
@@ -772,18 +1102,26 @@ def phase_generate_reference():
     with torch.inference_mode():
         ref = model.generate(inputs, lengths, sids, max_iters=20)
         model.cuda()
+        before = read_counts()
         out = model.generate(inputs.cuda(), lengths.cuda(), sids.cuda(), max_iters=20)
         torch.cuda.synchronize()
+    got = _delta(before)
+    want = path_launches(path, cfg, 20)
+    want.update(overlap_add=0, gl_iteration=0)            # no Griffin-Lim here
+    if got != want:
+        raise AssertionError(f"{path} f32 generate: launches {got}, expected {want}")
+    # f32 on both sides (cuBLAS and cuDNN without TF32, the kernels' sums
+    # in other orders), carried by 20 autoregressive steps -> 2e-3
     tol = 2e-3
     for name, a, b in zip(("mel", "linear", "align"), out, ref):
         err = (a.cpu() - b).abs().max().item()
-        log(f"[generate] full-width f32, card vs cpu plain path: {name} "
+        log(f"[generate {path}] full-width f32, card vs cpu plain path: {name} "
             f"{tuple(a.shape)} max|diff| {err:.3e} (tol {tol:.0e})")
         if not (torch.isfinite(a).all() and err <= tol):
             raise AssertionError(f"generate on the card disagrees with the CPU: {name} {err}")
 
 
-def phase_generate_bf16():
+def phase_generate_bf16(path="serve"):
     """The serving precision (bf16, dropout off) through ``generate`` on the
     card, with the kernels and then with their plain versions swapped in:
     everything around the kernels is the same cuBLAS/elementwise work."""
@@ -791,9 +1129,8 @@ def phase_generate_bf16():
     import torch
     from tacotron_multispeaker_torch.config import get_config
     from tacotron_multispeaker_torch.models import create_model
-    from tacotron_multispeaker_torch.ops import decoder_loop as dl
-    from tacotron_multispeaker_torch.ops import gru_scan as gs
-    cfg = get_config("multispeaker_vctk", "model.prenet_dropout=0.0")
+    cfg = get_config("multispeaker_vctk", "model.prenet_dropout=0.0"
+                     + ("," + PATHS[path] if PATHS[path] else ""))
     model = create_model("tacotron", cfg).reset_parameters(
         torch.Generator().manual_seed(2)).eval().cuda()
     rs = np.random.RandomState(1)
@@ -802,10 +1139,13 @@ def phase_generate_bf16():
     sids = torch.tensor([5, 77]).cuda()
     run = lambda: model.generate(inputs, lengths, sids, max_iters=20)
     with torch.inference_mode():
-        before = (gs.launches, dl.launches)
+        before = read_counts()
         out = run()
-        if (gs.launches - before[0], dl.launches - before[1]) != (2, 1):
-            raise AssertionError("bf16 generate did not go through both kernels")
+        got = _delta(before)
+        want = path_launches(path, cfg, 20)
+        want.update(overlap_add=0, gl_iteration=0)
+        if got != want:
+            raise AssertionError(f"{path} bf16 generate: launches {got}, expected {want}")
         with plain_kernels():
             ref = run()
         torch.cuda.synchronize()
@@ -817,7 +1157,7 @@ def phase_generate_bf16():
     for name, a, b in zip(("mel", "linear", "align"), out, ref):
         scale = 1.0 if name == "align" else b.abs().max().item()
         err = (a - b).abs().max().item() / scale
-        log(f"[generate] full-width bf16, kernels vs plain versions on the card: "
+        log(f"[generate {path}] full-width bf16, kernels vs plain versions on the card: "
             f"{name} {tuple(a.shape)} max|diff|{'' if name == 'align' else '/max|plain|'} "
             f"{err:.3e} (tol {tol[name]:.0e}; max|plain| {b.abs().max().item():.3e})")
         if not (torch.isfinite(a).all() and err <= tol[name]):
@@ -828,27 +1168,39 @@ def phase_generate_bf16():
 # phase 5: serving
 # --------------------------------------------------------------------------
 
-def phase_serve():
+SERVE_TEXTS = [
+    ("Hello there.", 0),
+    ("The quick brown fox jumps over the lazy dog near the river bank.", 17),
+    ("Printing, in the only sense with which we are at present concerned, differs "
+     "from most if not from all the arts and crafts represented in the exhibition.", 42),
+    ("He was the last of his line; and yet, in all the years that followed, nobody "
+     "could say for certain where the old house had stood, or who had built it.", 108),
+    ("One two three.", 64),
+]
+
+
+def phase_serve(path="serve", texts=SERVE_TEXTS):
+    """Serve full-width multispeaker_vctk on one path: warmup, B=1 requests
+    over both input buckets, one B=32 batch, each with its exact launches;
+    every count set to 0 just before and read just after."""
     import numpy as np
     import torch
     from scipy.io import wavfile
     from tacotron_multispeaker_torch.config import get_config
-    from tacotron_multispeaker_torch.ops import decoder_loop, gru_scan
     from tacotron_multispeaker_torch.synthesizer import Synthesizer
     from tacotron_multispeaker_torch.text import text_to_sequence
 
-    cfg = get_config("multispeaker_vctk")
+    cfg = get_config("multispeaker_vctk", PATHS[path])
     syn = Synthesizer(cfg, seed=0)
     sr = cfg.audio.sample_rate
-    max_samples = cfg.model.max_iters * cfg.model.outputs_per_step * cfg.audio.hop_length
-    counts = lambda: (gru_scan.launches, decoder_loop.launches)
+    steps = cfg.model.max_iters
+    max_samples = steps * cfg.model.outputs_per_step * cfg.audio.hop_length
+    tag = f"[{path}]"
 
-    def expect(before, n_requests, what):
-        got = (counts()[0] - before[0], counts()[1] - before[1])
-        want = (2 * n_requests, n_requests)
+    def expect(before, what):
+        got, want = _delta(before), path_launches(path, cfg, steps)
         if got != want:
-            raise AssertionError(f"{what}: launches (bigru_scan, decoder_loop) {got}, "
-                                 f"expected {want}")
+            raise AssertionError(f"{path} {what}: launches {got}, expected {want}")
 
     def check_wav(w, what):
         if not (w.ndim == 1 and 0 < w.shape[0] <= max_samples and np.isfinite(w).all()):
@@ -858,38 +1210,29 @@ def phase_serve():
     t0 = time.perf_counter()
     syn.warmup()
     torch.cuda.synchronize()
-    log(f"[serve] warmup (both input buckets) {time.perf_counter() - t0:.2f} s")
+    log(f"{tag} warmup (both input buckets) {time.perf_counter() - t0:.2f} s")
 
-    texts = [
-        ("Hello there.", 0),
-        ("The quick brown fox jumps over the lazy dog near the river bank.", 17),
-        ("Printing, in the only sense with which we are at present concerned, differs "
-         "from most if not from all the arts and crafts represented in the exhibition.", 42),
-        ("He was the last of his line; and yet, in all the years that followed, nobody "
-         "could say for certain where the old house had stood, or who had built it.", 108),
-        ("One two three.", 64),
-    ]
     buckets = set()
     for text, spk in texts:
         n = len(text_to_sequence(text, cfg.cleaners))
         bucket = syn.serve_bucket_for([text])
         buckets.add(bucket)
-        before = counts()
+        before = read_counts()
         t0 = time.perf_counter()
         data = syn.synthesize(text, speaker_id=spk, seed=spk)
         dt = time.perf_counter() - t0
-        expect(before, 1, f"synthesize(len={n})")
+        expect(before, f"synthesize(len={n})")
         rate, pcm = wavfile.read(io.BytesIO(data))
         if rate != sr or not 0 < pcm.shape[0] <= max_samples:
             raise AssertionError(f"synthesize(len={n}): wav rate {rate}, {pcm.shape}")
-        before = counts()
+        before = read_counts()
         wavs, aligns = syn.synthesize_batch([text], [spk], seed=spk, pad_to=bucket)
-        expect(before, 1, f"synthesize_batch(len={n})")
+        expect(before, f"synthesize_batch(len={n})")
         check_wav(wavs[0], f"request len={n}")
-        if aligns.shape != (1, cfg.model.max_iters, bucket):
+        if aligns.shape != (1, steps, bucket):
             raise AssertionError(f"alignments {aligns.shape}")
         full_s, trim_s = max_samples / sr, pcm.shape[0] / sr
-        log(f"[serve] request len={n:3d} bucket={bucket} speaker={spk:3d}: "
+        log(f"{tag} request len={n:3d} bucket={bucket} speaker={spk:3d}: "
             f"{dt * 1e3:8.2f} ms, {full_s:.2f} s audio decoded "
             f"({full_s / dt:7.2f} audio-s/s), {trim_s:.3f} s after the endpoint trim")
     if buckets != {96, 192}:
@@ -897,28 +1240,29 @@ def phase_serve():
 
     batch = [texts[i % len(texts)][0] for i in range(32)]
     spks = [(7 * i) % cfg.model.num_speakers for i in range(32)]
-    before = counts()
+    before = read_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    wavs, aligns = syn.synthesize_batch(batch, spks, max_iters=200, seed=1,
+    wavs, aligns = syn.synthesize_batch(batch, spks, max_iters=steps, seed=1,
                                         pad_to=syn.serve_bucket_for(batch))
     dt = time.perf_counter() - t0
-    expect(before, 1, "synthesize_batch(B=32)")
+    expect(before, "synthesize_batch(B=32)")
     for i, w in enumerate(wavs):
         check_wav(w, f"batch row {i}")
     audio_s = sum(w.shape[0] for w in wavs) / sr
     untrimmed_s = 32 * max_samples / sr
-    log(f"[serve] batch B=32 max_iters=200: {dt * 1e3:.2f} ms, {untrimmed_s:.1f} s "
+    log(f"{tag} batch B=32 max_iters={steps}: {dt * 1e3:.2f} ms, {untrimmed_s:.1f} s "
         f"audio decoded ({untrimmed_s / dt:.2f} audio-s/s), {audio_s:.3f} s after the "
         f"endpoint trim")
     total = read_counts()
-    log(f"[serve] launches over the serving run: {json.dumps(total)}")
-    if min(total["bigru_scan"], total["decoder_loop"]) <= 0:
+    log(f"{tag} launches over the serving run: {json.dumps(total)}")
+    used = [k for k, v in path_launches(path, cfg, steps).items() if v]
+    if min(total[k] for k in used) <= 0:
         raise AssertionError("a kernel of the serving path was never launched")
     phase_profile([
-        ("B=1 request L=192", lambda: syn.synthesize_batch([texts[2][0]], [texts[2][1]],
-                                                           pad_to=192)),
-        ("B=32 batch L=192", lambda: syn.synthesize_batch(batch, spks, pad_to=192))])
+        (f"{path} B=1 request L=192", lambda: syn.synthesize_batch(
+            [texts[2][0]], [texts[2][1]], pad_to=192)),
+        (f"{path} B=32 batch L=192", lambda: syn.synthesize_batch(batch, spks, pad_to=192))])
     return total
 
 
@@ -979,6 +1323,14 @@ KERNEL_META = {
                             "tacotron_multispeaker_tpu/ops/teacher_decoder.py:498", "train"),
     "wgrad": ("tacotron_multispeaker_torch/csrc/wgrad.cu",
               "tacotron_multispeaker_tpu/ops/teacher_decoder.py:498", "train"),
+    "conv_bank": ("tacotron_multispeaker_torch/csrc/conv_bank.cu",
+                  "tacotron_multispeaker_tpu/ops/conv_bank.py:37", "serve_pallas"),
+    "attention_step": ("tacotron_multispeaker_torch/csrc/attention_step.cu",
+                       "tacotron_multispeaker_tpu/ops/attention_step.py:53", "serve_location"),
+    "overlap_add": ("tacotron_multispeaker_torch/csrc/overlap_add.cu",
+                    "tacotron_multispeaker_tpu/ops/overlap_add.py:115", "serve_location"),
+    "gl_iteration": ("tacotron_multispeaker_torch/csrc/gl_iteration.cu",
+                     "tacotron_multispeaker_tpu/ops/gl_iteration.py:113", "serve_pallas"),
 }
 LIBRARY_NULL = {
     "bigru_scan": "torch.nn.GRU applies the reset gate after the matmul, another function",
@@ -989,6 +1341,11 @@ LIBRARY_NULL = {
     "teacher_decoder_bwd": "no one PyTorch call runs the decoder scan's backward",
     "wgrad": "part of the backward kernels (rounded factors, grouped); a matmul is not "
              "the kernel's function",
+    "attention_step": "scaled_dot_product_attention is dot-product attention; no one "
+                      "PyTorch call computes additive (tanh) attention",
+    "overlap_add": "no one PyTorch call windows, overlap-adds and divides by the "
+                   "window-square norm (torch.istft also runs the inverse FFT)",
+    "gl_iteration": "no one PyTorch call runs Griffin-Lim iterations",
 }
 
 
@@ -1005,20 +1362,25 @@ def main() -> int:
     kern = {"bigru_scan": phase_bigru(), "decoder_loop": phase_decoder()}
     kern["bigru_scan_bwd"], bigru_wgrad_err = phase_bigru_bwd()
     kern.update(phase_teacher(bigru_wgrad_err))
-    phase_generate_reference()
-    phase_generate_bf16()
-    launches = {"serve": phase_serve()}
+    kern.update(conv_bank=phase_conv_bank(), attention_step=phase_attention_step(),
+                overlap_add=phase_overlap_add(), gl_iteration=phase_gl_iteration())
+    for path in ("serve", "serve_location"):
+        phase_generate_reference(path)
+    for path in PATHS:
+        phase_generate_bf16(path)
+    launches = {path: phase_serve(path) for path in PATHS}
     phase_train_reference()
     phase_train_bf16()
     launches["train"] = phase_train()
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[path][name], "launches_by_path": {
-             p: launches[p][name] for p in ("serve", "train")},
+             p: launches[p][name] for p in (*PATHS, "train")},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
-         "bound_by": kern[name]["bound_by"], "library_ms": None,
-         "library_ms_null": LIBRARY_NULL[name], "shape": kern[name]["shape"]}
+         "bound_by": kern[name]["bound_by"], "library_ms": kern[name].get("library_ms"),
+         **({} if name not in LIBRARY_NULL else {"library_ms_null": LIBRARY_NULL[name]}),
+         "shape": kern[name]["shape"]}
         for name, (src, replaces, path) in KERNEL_META.items()]}
     log(smi)
     print(json.dumps(line), flush=True)

@@ -12,8 +12,14 @@ Port of the synthesis half of ``tacotron_multispeaker_tpu/audio/dsp.py``
   matrices and the synthesis window into the inverse ones (exact: the
   dropped columns multiply zeros).
 
-The ``fft`` and ``ct_*`` methods and the Pallas Griffin-Lim kernels are
-not on the serving path's defaults and stand in ROADMAP.md.
+``use_pallas`` (the JAX package's ``parallel.use_pallas``) takes the
+full-frame layout whatever the window, and routes as the JAX package does:
+``dft_bf16`` and ``dft_mix`` run their fast bf16 iterations through the
+Griffin-Lim kernel (ops/gl_iteration.py) and keep the plain overlap-adds;
+``dft_f32`` and ``dft_hi`` run every overlap-add through the OLA kernel
+(ops/overlap_add.py).
+
+The ``fft`` and ``ct_*`` methods stand in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import gl_iteration as gl_ops
+from ..ops import overlap_add as ola_ops
 from ..ops.overlap_add import overlap_add_reference
 
 
@@ -134,24 +142,9 @@ def denormalize_db(s: torch.Tensor, min_level_db: float) -> torch.Tensor:
 # DFT matrices
 # ----------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=4)
 def _dft_matrices(n_fft: int):
-    """(C [n_fft, bins], S [n_fft, bins], iC [bins, n_fft], iS [bins, n_fft])
-    such that re = x@C, im = x@S and x = re@iC + im@iS (== rfft/irfft)."""
-    bins = n_fft // 2 + 1
-    n = np.arange(n_fft)[:, None]
-    k = np.arange(bins)[None, :]
-    ang = 2.0 * np.pi * n * k / n_fft
-    C = np.cos(ang)
-    S = -np.sin(ang)
-    w = np.full((bins,), 2.0)
-    w[0] = 1.0
-    if n_fft % 2 == 0:
-        w[-1] = 1.0
-    iC = (w[:, None] * C.T) / n_fft
-    iS = (w[:, None] * S.T) / n_fft
-    return (C.astype(np.float32), S.astype(np.float32),
-            iC.astype(np.float32), iS.astype(np.float32))
+    """(C, S, iC, iS) float32: ops/gl_iteration.py's ``dft_matrices``."""
+    return tuple(a.astype(np.float32) for a in gl_ops.dft_matrices(n_fft))
 
 
 @functools.lru_cache(maxsize=4)
@@ -179,10 +172,11 @@ POLISH_ITERS = 3  # "mix": the last iterations run at the polish precision
 
 @functools.lru_cache(maxsize=16)
 def _gl_constants(n_fft: int, win_length: int, device: torch.device,
-                  dtype: torch.dtype = torch.float32):
+                  dtype: torch.dtype = torch.float32, windowed: bool = True):
     """(window, (C, S, iC, iS)) on ``device``, built once: the window-support
-    matrices and window when win_length < n_fft, else the full-frame ones."""
-    if win_length < n_fft:
+    matrices and window when ``windowed`` and win_length < n_fft, else the
+    full-frame ones."""
+    if windowed and win_length < n_fft:
         mats = _dft_win_matrices(n_fft, win_length)
         window = hann_window(win_length, win_length)
     else:
@@ -195,7 +189,8 @@ def _gl_constants(n_fft: int, win_length: int, device: torch.device,
 def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
                 generator: torch.Generator | None = None,
                 method: str = "dft_f32", momentum: float = 0.0,
-                angles: torch.Tensor | None = None) -> torch.Tensor:
+                angles: torch.Tensor | None = None,
+                use_pallas: bool = False) -> torch.Tensor:
     """Phase reconstruction: magnitude [..., bins, frames] -> waveform.
 
     ``angles`` [..., frames, bins]: the initial phases; drawn uniformly in
@@ -208,6 +203,8 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
     (bf16×3 products on the TPU) and the ``mix`` polish run as full-float32
     matmuls here: PyTorch has no bf16×3 mode, and float32 is the more
     accurate of the two.
+
+    ``use_pallas``: the full-frame layout and the kernels (module docstring).
     """
     algo, _, prec = method.partition("_")
     if algo != "dft" or prec not in ("f32", "hi", "bf16", "mix"):
@@ -218,14 +215,16 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
     mom = momentum / (1.0 + momentum) if momentum > 0.0 else 0.0
     dtype = torch.bfloat16 if prec in ("bf16", "mix") else torch.float32
     n_fft, hop = params.n_fft, params.hop_length
-    windowed = params.win_length < n_fft
+    windowed = not use_pallas and params.win_length < n_fft
+    fuse_fast = use_pallas and prec in ("bf16", "mix")
+    ola_kernel = use_pallas and not fuse_fast
     Wn = params.win_length if windowed else n_fft
     lpad = (n_fft - Wn) // 2
     rpad = n_fft - Wn - lpad
-    window, mats32 = _gl_constants(n_fft, params.win_length, dev)
+    window, mats32 = _gl_constants(n_fft, params.win_length, dev, windowed=windowed)
     by_dtype = {torch.float32: mats32,
                 torch.bfloat16: _gl_constants(n_fft, params.win_length, dev,
-                                              torch.bfloat16)[1]}
+                                              torch.bfloat16, windowed)[1]}
 
     magT = magnitude.transpose(-1, -2).float()              # [..., F, bins]
     batch_shape = magT.shape[:-2]
@@ -240,9 +239,10 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
 
     def ola(re, im, dt):
         _, _, iC, iS = by_dtype[dt]
-        frames = (re.to(dt) @ iC + im.to(dt) @ iS).to(dt)
-        sig = overlap_add_reference(frames.reshape(-1, nF, Wn), window.to(dt), hop,
-                                    prewindowed=windowed)
+        frames = (re.to(dt) @ iC + im.to(dt) @ iS).to(dt).reshape(-1, nF, Wn)
+        if ola_kernel:
+            return ola_ops.overlap_add(frames, window, hop)
+        sig = overlap_add_reference(frames, window.to(dt), hop, prewindowed=windowed)
         return sig.float()                               # [prod(batch), out_len]
 
     def frame(sig, dt):
@@ -273,11 +273,24 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
     a = angles.to(dev).float().reshape(magT_flat.shape)
     sig = ola(magT_flat * torch.cos(a), magT_flat * torch.sin(a), dtype)
     z = torch.zeros_like(magT_flat)
+
+    # the kernel's n fast bf16 iterations from the initial frames → (sre,
+    # sim, pre, pim); the overlap-add of (sre, sim) stays plain, as in JAX
+    fast_kernel = lambda n: gl_ops.gl_fast_iterations(
+        frame(sig, torch.bfloat16), magT_flat, window, hop, n, mom)
+
     if prec == "mix":
         n_fast = max(n_iters - POLISH_ITERS, 0)
-        sig, pre, pim = iterate((sig, z.to(dtype), z.to(dtype)), n_fast, dtype)
-        carry = (sig, pre.float(), pim.float())
+        if fuse_fast and n_fast > 0:
+            sre, sim, pre, pim = fast_kernel(n_fast)
+            carry = (ola(sre, sim, torch.float32), pre, pim)
+        else:
+            sig, pre, pim = iterate((sig, z.to(dtype), z.to(dtype)), n_fast, dtype)
+            carry = (sig, pre.float(), pim.float())
         sig, _, _ = iterate(carry, n_iters - n_fast, torch.float32)
+    elif fuse_fast:
+        sre, sim, _, _ = fast_kernel(n_iters)
+        sig = ola(sre, sim, dtype)
     else:
         sig, _, _ = iterate((sig, z.to(dtype), z.to(dtype)), n_iters, dtype)
     # crop the centered-analysis padding; in the window-support layout the
@@ -291,9 +304,11 @@ def inv_linear_spectrogram(spec: torch.Tensor, params: STFTParams, *,
                            min_level_db: float, power: float, gl_iters: int,
                            generator: torch.Generator | None = None,
                            gl_method: str = "dft_f32", gl_momentum: float = 0.0,
-                           angles: torch.Tensor | None = None) -> torch.Tensor:
+                           angles: torch.Tensor | None = None,
+                           use_pallas: bool = False) -> torch.Tensor:
     """Normalized linear spectrogram [..., bins, frames] -> waveform."""
     s = db_to_amp(denormalize_db(spec.float(), min_level_db) + ref_level_db)
     y = griffin_lim(torch.pow(s, power), params, gl_iters, generator,
-                    method=gl_method, momentum=gl_momentum, angles=angles)
+                    method=gl_method, momentum=gl_momentum, angles=angles,
+                    use_pallas=use_pallas)
     return inv_preemphasis(y, preemph)

@@ -5,10 +5,24 @@ fields, defaults and presets), kept in the port so that it imports nothing
 of the JAX package.  Field meanings are documented there; the notes here
 say only how the port reads them.
 
-``ParallelConfig``'s kernel switches (``use_pallas*``) are kept so that a
-config round-trips between the two packages, but the port does not read
-them: a port kernel runs exactly when its inputs lie on a CUDA device, and
-its plain PyTorch version runs exactly when they lie on the CPU.
+Kernel switches.  A port kernel runs exactly when its inputs lie on a
+CUDA device, and its plain PyTorch version exactly when they lie on the
+CPU.  Which kernels a path reaches follows two of ``ParallelConfig``'s
+switches, as in the JAX package:
+
+* ``use_pallas`` routes both CBHG conv banks through the conv-bank kernel
+  (inference only), the per-step decode's attention through the
+  attention-step kernel, and Griffin-Lim through the full-frame layout with
+  the fused fast-iteration kernel (``dft_bf16``, ``dft_mix``) or the
+  overlap-add kernel (``dft_f32``, ``dft_hi``);
+* ``use_pallas_decode`` (with Bahdanau attention and a two-layer prenet)
+  selects the fused decoder loop; otherwise ``generate`` runs the per-step
+  decode.  The TPU's ``% 128`` gates do not carry over.
+
+The other switches (``use_pallas_gru``, ``use_pallas_teacher``,
+``use_pallas_seq_attention``) are kept so that a config round-trips between
+the two packages; the port does not read them: the BiGRU scans and the
+teacher decoder always run in their kernels.
 """
 
 from __future__ import annotations

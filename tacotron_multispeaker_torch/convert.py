@@ -15,7 +15,9 @@ ConvBank               kernel [K, in, K*C]         weight [K*C, in, K]
 Embed                  embedding [N, E]            weight [N, E]
 BatchNorm              params scale/bias,          scale, bias, mean, var
                        batch_stats mean/var
-Bahdanau ``v``         [A, 1]                      [A]
+attention ``v``        [A, 1]                      [A]
+location ``loc_conv``  kernel WIO [W, 1, filters]  weight [filters, 1, W]
+location ``b``         [] (score bias)             0-d tensor
 =====================  =========================  ==========================
 
 Both directions are exact (transposes and reshapes only).
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.attention import BahdanauAttention
+from .models.attention import BahdanauAttention, LocationSensitiveAttention
 from .models.modules import BatchNorm, ConvBank
 
 
@@ -54,6 +56,8 @@ def _leaf_rules(model: nn.Module):
             elif isinstance(mod, BahdanauAttention) and name == "v":
                 yield (key, "params", path + ["v"], lambda a: a.reshape(-1),
                        lambda a: a.reshape(-1, 1))
+            elif isinstance(mod, LocationSensitiveAttention) and name == "b":
+                yield key, "params", path + ["b"], None, None
             elif name in ("bias", "scale"):
                 yield key, "params", path + [name], None, None
             else:
@@ -75,7 +79,7 @@ def flax_to_state_dict(variables, model: nn.Module) -> dict[str, torch.Tensor]:
             node = node[p]
         arr = np.asarray(node)
         arr = to_port(arr) if to_port is not None else arr
-        t = torch.tensor(np.ascontiguousarray(arr))
+        t = torch.tensor(np.array(arr, order="C"))
         if tuple(t.shape) != tuple(expected[key].shape):
             raise ValueError(f"{key}: flax {'/'.join(path)} gives shape "
                              f"{tuple(t.shape)}, port has {tuple(expected[key].shape)}")
@@ -100,7 +104,7 @@ def state_dict_to_flax(state: dict[str, torch.Tensor], model: nn.Module):
         node = out[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.array(arr, order="C")
     return out
 
 
@@ -120,7 +124,7 @@ def grads_to_flax(model: nn.Module):
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.array(arr, order="C")
     return out
 
 

@@ -1,18 +1,31 @@
-"""Bahdanau (additive content) attention.
+"""Attention mechanisms: Bahdanau (content) and location-sensitive.
 
 Port of ``tacotron_multispeaker_tpu/models/attention.py``.  ``precompute_keys``
-projects the encoder memory once per utterance; the per-step energies,
-softmax and context run inside the fused decoder loop
-(ops/decoder_loop.py), and :meth:`BahdanauAttention.forward` is the same
-step as a plain module.  Location-sensitive attention is a later slice.
+projects the encoder memory once per utterance.  ``forward`` is one decoder
+step of the per-step decode: (query, keys, memory, mask, state) → (context,
+alignments, state), the state carrying the previous and the cumulative
+alignments.  With ``use_pallas`` (the JAX package's switch) the energies,
+softmax and context of a step run in the attention-step kernel
+(ops/attention_step.py); otherwise in the plain module math.  The fused
+decoder loop (ops/decoder_loop.py) runs Bahdanau's step inside its own
+kernel.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops import attention_step as as_ops
 from .modules import Dense
+
+
+class AttentionState(NamedTuple):
+    alignments: torch.Tensor       # [B, L] previous alignments, f32
+    accumulated: torch.Tensor      # [B, L] cumulative alignments, f32
 
 
 def masked_softmax(energies: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -24,12 +37,18 @@ def masked_softmax(energies: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-9)
 
 
+def init_state(batch: int, length: int, device) -> AttentionState:
+    z = torch.zeros((batch, length), dtype=torch.float32, device=device)
+    return AttentionState(z, z)
+
+
 class BahdanauAttention(nn.Module):
     """Additive content attention: score = v·tanh(W_q q + W_k m)."""
 
     def __init__(self, units: int, query_depth: int, memory_depth: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
         super().__init__()
+        self.use_pallas = use_pallas
         self.query = Dense(query_depth, units, bias=False, dtype=dtype)
         self.memory = Dense(memory_depth, units, bias=False, dtype=dtype)
         self.v = nn.Parameter(torch.empty(units))
@@ -38,23 +57,68 @@ class BahdanauAttention(nn.Module):
         """[B, L, D] -> [B, L, A], once per utterance."""
         return self.memory(memory)
 
-    def forward(self, query: torch.Tensor, keys: torch.Tensor,
-                memory: torch.Tensor, mask: torch.Tensor):
-        """One decoder step: query [B, Q] -> (context [B, D], align [B, L])."""
+    def _location_term(self, state: AttentionState, keys: torch.Tensor):
+        return None
+
+    def forward(self, query: torch.Tensor, keys: torch.Tensor, memory: torch.Tensor,
+                mask: torch.Tensor, state: AttentionState | None = None):
+        """One decoder step: query [B, Q] -> (context [B, D] in memory's
+        dtype, alignments [B, L] f32, the next state)."""
+        if state is None:
+            state = init_state(keys.shape[0], keys.shape[1], keys.device)
         q = self.query(query)
-        e = torch.tanh(q[:, None, :] + keys) @ self.v.to(keys.dtype)
-        align = masked_softmax(e.float(), mask)
-        context = torch.einsum("bl,bld->bd", align.to(memory.dtype), memory)
-        return context, align
+        loc = self._location_term(state, keys)
+        v = self.v.to(keys.dtype)
+        if self.use_pallas:
+            # the location-sensitive score bias shifts every energy alike and
+            # the softmax ignores it, so the kernel leaves it out (as in JAX)
+            context, align = as_ops.attention_step(keys.contiguous(), q.contiguous(), v,
+                                                   memory.contiguous(), mask, loc)
+            context = context.to(memory.dtype)
+        else:
+            act = q[:, None, :] + keys
+            if loc is not None:
+                act = act + loc
+            e = (torch.tanh(act) @ v).float()
+            if loc is not None:
+                e = e + self.b
+            align = masked_softmax(e, mask)
+            context = torch.einsum("bl,bld->bd", align.to(memory.dtype), memory)
+        return context, align, AttentionState(align, state.accumulated + align)
 
 
-def make_attention(model_cfg, memory_depth: int,
-                   dtype: torch.dtype = torch.float32) -> nn.Module:
-    if model_cfg.attention_type == "bahdanau":
-        return BahdanauAttention(model_cfg.attention_depth,
-                                 model_cfg.decoder_depth, memory_depth, dtype)
-    if model_cfg.attention_type == "location":
-        raise NotImplementedError(
-            "location-sensitive attention is not ported yet (ROADMAP.md, "
-            "'Location-sensitive attention')")
-    raise ValueError(f"unknown attention_type {model_cfg.attention_type!r}")
+class LocationSensitiveAttention(BahdanauAttention):
+    """Content + location attention (Chorowski et al.): the energies also
+    see ``loc_proj(loc_conv(cumulative alignments))``; the width-31 location
+    conv (1 → filters channels, SAME, no bias) and its projection run in
+    plain PyTorch in the compute dtype, outside the kernel, as in JAX."""
+
+    def __init__(self, units: int, query_depth: int, memory_depth: int,
+                 filters: int = 32, kernel: int = 31,
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+        super().__init__(units, query_depth, memory_depth, dtype, use_pallas)
+        self.compute_dtype = dtype
+        self.loc_conv = nn.Conv1d(1, filters, kernel, bias=False)
+        self.loc_proj = Dense(filters, units, bias=False, dtype=dtype)
+        self.b = nn.Parameter(torch.zeros(()))
+
+    def _location_term(self, state: AttentionState, keys: torch.Tensor) -> torch.Tensor:
+        """[B, L, A] in the compute dtype."""
+        dt = self.compute_dtype
+        width = self.loc_conv.kernel_size[0]
+        acc = F.pad(state.accumulated.to(dt)[:, None, :], ((width - 1) // 2, width // 2))
+        loc = F.conv1d(acc, self.loc_conv.weight.to(dt)).transpose(1, 2)   # [B, L, F]
+        return self.loc_proj(loc)
+
+
+def make_attention(model_cfg, memory_depth: int, dtype: torch.dtype = torch.float32,
+                   use_pallas: bool = False) -> nn.Module:
+    m = model_cfg
+    if m.attention_type == "bahdanau":
+        return BahdanauAttention(m.attention_depth, m.decoder_depth, memory_depth, dtype,
+                                 use_pallas)
+    if m.attention_type == "location":
+        return LocationSensitiveAttention(
+            m.attention_depth, m.decoder_depth, memory_depth,
+            m.attention_location_filters, m.attention_location_kernel, dtype, use_pallas)
+    raise ValueError(f"unknown attention_type {m.attention_type!r}")

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv_bank as cb_ops
 from ..ops import gru_scan
 
 
@@ -117,6 +118,15 @@ class Prenet(nn.Module):
                 x = torch.where(draw < keep, x / keep, torch.zeros_like(x))
         return x
 
+    def forward_masked(self, x: torch.Tensor, masks) -> torch.Tensor:
+        """The prenet with given dropout masks (one per layer, 0 or 1/keep,
+        f32) in place of drawn ones; ``masks`` None is no dropout."""
+        for i in range(self.n_layers):
+            x = torch.relu(getattr(self, f"dense_{i}")(x))
+            if masks is not None:
+                x = x * masks[i].to(x.dtype)
+        return x
+
 
 class HighwayNet(nn.Module):
     """y = H(x)·T(x) + x·(1−T(x)); transform-gate bias init −1."""
@@ -168,12 +178,19 @@ def _bank_mask(bank_k: int, channels: int) -> np.ndarray:
 class ConvBank(nn.Module):
     """Conv bank widths 1..K, C channels each → [B, T, K*C], as ONE masked
     width-K convolution.  The weight is stored unmasked (PyTorch layout
-    [K*C, in, K]); the mask is applied at run time."""
+    [K*C, in, K]); the mask is applied at run time.
+
+    ``use_pallas`` (the JAX package's switch) routes the product through the
+    conv-bank kernel (ops/conv_bank.py, inference only) with its rounding:
+    f32 sums, the bias rounded to the compute dtype and added in f32, ReLU,
+    one rounding.  Without it ``F.conv1d`` rounds the conv output to the
+    compute dtype before the f32 bias and ReLU, as the JAX XLA path does."""
 
     def __init__(self, in_channels: int, bank_k: int, channels: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
         super().__init__()
         self.compute_dtype = dtype
+        self.use_pallas = use_pallas
         self.bank_k = bank_k
         self.weight = nn.Parameter(torch.empty(bank_k * channels, in_channels, bank_k))
         self.bias = nn.Parameter(torch.zeros(bank_k * channels))
@@ -184,6 +201,10 @@ class ConvBank(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         kernel = (self.weight * self.mask).to(dt)
+        if self.use_pallas:
+            y = cb_ops.conv_bank(x.to(dt).contiguous(), kernel.permute(2, 1, 0).contiguous(),
+                                 self.bias.to(dt))
+            return self.bn(y)
         xp = F.pad(x.to(dt).transpose(1, 2), _same_pad(self.bank_k))
         y = F.conv1d(xp, kernel).transpose(1, 2)
         y = torch.relu(y.float() + self.bias).to(dt)
@@ -210,6 +231,13 @@ class GRUCellParams(nn.Module):
     def x_proj(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Input projections for a whole sequence ([..., 2F], [..., F])."""
         return self.xg(x), self.xc(x)
+
+    def step(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One step in the compute dtype (flax ``GRUCellParams.__call__``)."""
+        gates = torch.sigmoid(self.xg(x) + self.hg(h))
+        r, u = gates.chunk(2, dim=-1)
+        c = torch.tanh(self.xc(x) + self.hc(r * h))
+        return u * h + (1.0 - u) * c
 
 
 def reverse_sequences(xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -278,15 +306,16 @@ class BiGRU(nn.Module):
 class CBHG(nn.Module):
     """Conv Bank + Highway + BiGRU: bank (widths 1..K) → maxpool(2, 1,
     SAME) → two width-3 conv projections + residual → [dim-match Dense] →
-    N× highway → BiGRU.  Padded positions are zeroed before every conv."""
+    N× highway → BiGRU.  Padded positions are zeroed before every conv.
+    ``use_pallas`` routes the bank through its kernel (:class:`ConvBank`)."""
 
     def __init__(self, in_dim: int, bank_k: int, bank_channels: int,
                  proj_channels: Sequence[int], highway_layers: int,
                  highway_depth: int, gru_units: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
         super().__init__()
         self.highway_layers = highway_layers
-        self.bank = ConvBank(in_dim, bank_k, bank_channels, dtype)
+        self.bank = ConvBank(in_dim, bank_k, bank_channels, dtype, use_pallas)
         self.proj_0 = ConvBN(bank_k * bank_channels, 3, proj_channels[0], True, dtype)
         self.proj_1 = ConvBN(proj_channels[0], 3, proj_channels[1], False, dtype)
         if proj_channels[1] != highway_depth:

@@ -6,9 +6,14 @@ emitting r mel frames per step → post-net CBHG → linear spectrogram
 projection.  ``forward`` is the teacher-forced training path: the decoder
 runs as one fused differentiable scan (ops/teacher_decoder.py).  ``generate``
 runs the whole autoregressive decode as one fused decoder loop
-(ops/decoder_loop.py).  Both CBHG BiGRUs are fused differentiable scans
-(ops/gru_scan.py).  Module and parameter names mirror the flax tree, so
-convert.py maps one onto the other by name.
+(ops/decoder_loop.py) for Bahdanau attention with a two-layer prenet and
+``parallel.use_pallas_decode``, and otherwise as a per-step decode of
+:meth:`DecoderCell.step` (the JAX package's scan), whose attention runs in
+the attention-step kernel under ``parallel.use_pallas``.  Both CBHG BiGRUs
+are fused differentiable scans (ops/gru_scan.py); ``parallel.use_pallas``
+also routes both conv banks through their kernel (ops/conv_bank.py).
+Module and parameter names mirror the flax tree, so convert.py maps one
+onto the other by name.
 
 ``self.training`` plays the part of flax's ``train`` flag for the
 BatchNorms (batch statistics and running-statistic updates in training
@@ -30,8 +35,8 @@ from ..config import Config
 from ..ops import decoder_loop as dl_ops
 from ..ops import teacher_decoder as td_ops
 from ..text import vocab_size
-from .attention import make_attention
-from .helpers import teacher_inputs
+from .attention import AttentionState, init_state, make_attention
+from .helpers import feedback_frame, teacher_inputs
 from .modules import CBHG, BatchNorm, ConvBank, Dense, GRUCellParams, Prenet
 
 
@@ -39,6 +44,15 @@ class TacotronOutput(NamedTuple):
     mel_outputs: torch.Tensor      # [B, T, num_mels] float32
     linear_outputs: torch.Tensor   # [B, T, num_freq] float32
     alignments: torch.Tensor       # [B, T/r, L] float32
+
+
+class DecoderCarry(NamedTuple):
+    """The per-step decode's carry (flax ``DecoderCarry``)."""
+    attn_h: torch.Tensor           # [B, H] compute dtype
+    dec_hs: tuple                  # N × [B, H] compute dtype
+    context: torch.Tensor          # [B, D] compute dtype
+    attn_state: AttentionState
+    prev_frame: torch.Tensor       # [B, num_mels] f32, the fed-back frame
 
 
 def _compute_dtype(cfg: Config) -> torch.dtype:
@@ -66,7 +80,7 @@ class Encoder(nn.Module):
         self.cbhg = CBHG(m.prenet_depths[-1], m.encoder_bank_k,
                          m.encoder_bank_channels, m.encoder_proj_channels,
                          m.encoder_highway_layers, highway_depth=half,
-                         gru_units=half, dtype=dtype)
+                         gru_units=half, dtype=dtype, use_pallas=cfg.parallel.use_pallas)
 
     def forward(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                 speaker_embed: torch.Tensor | None,
@@ -85,15 +99,17 @@ class Encoder(nn.Module):
 
 
 class DecoderCell(nn.Module):
-    """Holder of the decoder step's parameters (flax ``decoder_cell``):
-    attention GRU over [prenet, context], dec_in Dense over [attn_h,
-    context], the residual GRU stack and the r×num_mels projection.  The
-    step itself runs in ops/decoder_loop.py."""
+    """The decoder step's parameters (flax ``decoder_cell``): attention GRU
+    over [prenet, context], dec_in Dense over [attn_h, context], the
+    residual GRU stack and the r×num_mels projection.  :meth:`step` is one
+    step of the per-step decode; the fused decode runs the same step in
+    ops/decoder_loop.py."""
 
     def __init__(self, cfg: Config, memory_depth: int, dtype: torch.dtype):
         super().__init__()
         m = cfg.model
         H = m.decoder_depth
+        self.r, self.num_mels = m.outputs_per_step, cfg.audio.num_mels
         self.n_layers = m.decoder_layers
         self.attn_rnn = GRUCellParams(m.prenet_depths[-1] + memory_depth, H, dtype)
         self.dec_in = Dense(H + memory_depth, H, dtype=dtype)
@@ -106,10 +122,28 @@ class DecoderCell(nn.Module):
     def dec_rnns(self) -> list[GRUCellParams]:
         return [getattr(self, f"dec_rnn_{i}") for i in range(self.n_layers)]
 
+    def step(self, attention: nn.Module, carry: DecoderCarry, prenet_out: torch.Tensor,
+             keys: torch.Tensor, memory: torch.Tensor, mask: torch.Tensor):
+        """One step (flax ``DecoderCell.__call__``) → (carry, (frames
+        [B, r·M] f32, alignments [B, L] f32))."""
+        cell_in = torch.cat([prenet_out, carry.context.to(prenet_out.dtype)], dim=-1)
+        attn_h = self.attn_rnn.step(carry.attn_h, cell_in)
+        context, align, attn_state = attention(attn_h, keys, memory, mask, carry.attn_state)
+        x = self.dec_in(torch.cat([attn_h, context.to(attn_h.dtype)], dim=-1))
+        new_hs = []
+        for cell, h in zip(self.dec_rnns, carry.dec_hs):
+            h_new = cell.step(h, x)
+            x = x + h_new                                  # residual stack
+            new_hs.append(h_new)
+        frames = self.frame_proj(x)                        # [B, r*M]
+        last = feedback_frame(frames, self.r, self.num_mels).float()
+        return (DecoderCarry(attn_h, tuple(new_hs), context, attn_state, last),
+                (frames.float(), align))
+
 
 class Tacotron(nn.Module):
     """The full model; ``forward`` is the teacher-forced training path,
-    ``generate`` the fused autoregressive inference path."""
+    ``generate`` the autoregressive inference path."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -120,13 +154,15 @@ class Tacotron(nn.Module):
         self.encoder = Encoder(c, self.dtype)
         self.dec_prenet = Prenet(c.audio.num_mels, m.prenet_depths,
                                  m.prenet_dropout, self.dtype)
-        self.attention = make_attention(m, memory_depth, self.dtype)
+        self.attention = make_attention(m, memory_depth, self.dtype,
+                                        use_pallas=c.parallel.use_pallas)
         self.decoder_cell = DecoderCell(c, memory_depth, self.dtype)
         half = m.postnet_depth // 2
         self.post_cbhg = CBHG(c.audio.num_mels, m.postnet_bank_k,
                               m.postnet_bank_channels, m.postnet_proj_channels,
                               m.postnet_highway_layers, highway_depth=half,
-                              gru_units=m.postnet_gru_units, dtype=self.dtype)
+                              gru_units=m.postnet_gru_units, dtype=self.dtype,
+                              use_pallas=c.parallel.use_pallas)
         self.linear_proj = Dense(2 * m.postnet_gru_units, c.audio.num_freq,
                                  dtype=self.dtype)
         if m.num_speakers > 1:
@@ -162,7 +198,8 @@ class Tacotron(nn.Module):
                     mod.bias.fill_(mod.bias_init)
             elif isinstance(mod, (nn.Conv1d, ConvBank)):
                 lecun(mod.weight, mod.weight.shape[1] * mod.weight.shape[2])
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
                 nn.init.normal_(mod.weight, 0.0, 1.0 / math.sqrt(mod.embedding_dim),
                                 generator=generator)
@@ -269,6 +306,11 @@ class Tacotron(nn.Module):
         """Encoder + teacher-forced decoder to mel (no post-net) →
         (mel [B, T, M] f32, alignments [B, T/r, L] f32)."""
         m = self.cfg.model
+        if m.attention_type != "bahdanau":
+            raise NotImplementedError(
+                f"the teacher-forced path of attention_type={m.attention_type!r} is not "
+                "ported yet (ROADMAP.md, 'Location-attention training'); the fused "
+                "teacher decoder runs Bahdanau attention")
         B, L = inputs.shape
         T, M = mel_targets.shape[1], self.cfg.audio.num_mels
         H = m.decoder_depth
@@ -322,11 +364,16 @@ class Tacotron(nn.Module):
                  speaker_ids: torch.Tensor | None = None,
                  max_iters: int | None = None,
                  generator: torch.Generator | None = None) -> TacotronOutput:
-        """Encoder → fused decode of ``max_iters`` steps (prenet dropout on,
-        masks drawn up front from ``generator``) → post-net."""
+        """Encoder → decode of ``max_iters`` steps (prenet dropout on, its
+        masks drawn up front from ``generator``, one [steps, B, width] draw
+        per prenet layer in order) → post-net.
+
+        The fused decoder loop runs iff attention is Bahdanau, the prenet
+        has two layers and ``parallel.use_pallas_decode`` is set; otherwise
+        the per-step decode runs :meth:`DecoderCell.step` once per step (the
+        JAX package's scan).  Both draw the same masks from the same
+        generator."""
         m = self.cfg.model
-        if len(m.prenet_depths) != 2:
-            raise ValueError("the fused decoder loop needs a two-layer prenet")
         B, L = inputs.shape
         r, M = m.outputs_per_step, self.cfg.audio.num_mels
         n_steps = max_iters if max_iters is not None else m.max_iters
@@ -340,20 +387,48 @@ class Tacotron(nn.Module):
                 < input_lengths.to(dev)[:, None]).contiguous()
         attn_h0, dec_h0 = self._init_carry(B, spk, dev)
 
-        P1, P2 = m.prenet_depths
         keep = 1.0 - m.prenet_dropout
+        masks = None
         if keep < 1.0:
-            draw = lambda n: (torch.rand((n_steps, B, n), generator=generator,
-                                         device=dev) < keep).float() / keep
-            dm1, dm2 = draw(P1), draw(P2)
+            masks = [(torch.rand((n_steps, B, n), generator=generator, device=dev)
+                      < keep).float() / keep for n in m.prenet_depths]
+        fused = (m.attention_type == "bahdanau" and len(m.prenet_depths) == 2
+                 and self.cfg.parallel.use_pallas_decode)
+        if fused:
+            if masks is None:
+                masks = [torch.ones((n_steps, B, n), device=dev) for n in m.prenet_depths]
+            frames, aligns = dl_ops.decoder_loop(
+                self._fused_decoder_weights(), keys, memory, mask, masks[0], masks[1],
+                attn_h0, dec_h0, n_steps, M)
+            mel_out = frames.transpose(0, 1).reshape(B, n_steps * r, M)
+            aligns = aligns.transpose(0, 1)
         else:
-            dm1 = torch.ones((n_steps, B, P1), device=dev)
-            dm2 = torch.ones((n_steps, B, P2), device=dev)
-        frames, aligns = dl_ops.decoder_loop(
-            self._fused_decoder_weights(), keys, memory, mask, dm1, dm2,
-            attn_h0, dec_h0, n_steps, M)
-        mel_out = frames.transpose(0, 1).reshape(B, n_steps * r, M)
+            mel_out, aligns = self._per_step_decode(keys, memory, mask, attn_h0, dec_h0,
+                                                    masks, n_steps)
         target_lengths = torch.full((B,), n_steps * r, dtype=torch.long, device=dev)
         with self._running_statistics():
             linear_out = self._postnet(mel_out, target_lengths)
-        return TacotronOutput(mel_out, linear_out, aligns.transpose(0, 1))
+        return TacotronOutput(mel_out, linear_out, aligns)
+
+    def _per_step_decode(self, keys, memory, mask, attn_h0, dec_h0, masks, n_steps):
+        """The decode as a Python loop over :meth:`DecoderCell.step` →
+        (mel [B, S·r, M] f32, alignments [B, S, L] f32).  The carry starts
+        as the JAX package's: states in the compute dtype, zero context,
+        zero attention state, zero fed-back frame."""
+        B, L = keys.shape[:2]
+        dt, M = self.dtype, self.cfg.audio.num_mels
+        carry = DecoderCarry(
+            attn_h=attn_h0.to(dt), dec_hs=tuple(h.to(dt) for h in dec_h0),
+            context=torch.zeros((B, memory.shape[-1]), dtype=dt, device=keys.device),
+            attn_state=init_state(B, L, keys.device),
+            prev_frame=torch.zeros((B, M), dtype=torch.float32, device=keys.device))
+        frames, aligns = [], []
+        for t in range(n_steps):
+            pn = self.dec_prenet.forward_masked(
+                carry.prev_frame.to(dt), None if masks is None else [mk[t] for mk in masks])
+            carry, (fr, al) = self.decoder_cell.step(self.attention, carry, pn, keys,
+                                                     memory, mask)
+            frames.append(fr)
+            aligns.append(al)
+        mel_out = torch.stack(frames, dim=1).reshape(B, n_steps * self.cfg.model.outputs_per_step, M)
+        return mel_out, torch.stack(aligns, dim=1)

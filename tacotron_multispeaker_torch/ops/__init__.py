@@ -17,9 +17,20 @@ integers count the kernel launches.
   d_keys (``_dkeys_pallas``) and the autograd Function ``TeacherDecoder``.
 * :mod:`.wgrad` — the weight-gradient reduction of both backward kernels
   (the per-step ``dot_tn`` sums inside the two Pallas backward kernels).
-* :mod:`.overlap_add` — the plain overlap-add of the Griffin-Lim loop (no
-  kernel: the JAX package runs the same plain formulation by default).
+* :mod:`.conv_bank` — ``conv_bank``, the CBHG conv bank as one product
+  (``conv_bank_pallas``; ``parallel.use_pallas``, inference only).
+* :mod:`.attention_step` — ``attention_step``, one additive-attention step
+  with an optional location term (``attention_step_pallas``; the per-step
+  decode under ``parallel.use_pallas``).
+* :mod:`.overlap_add` — the plain static-shift overlap-add of the
+  Griffin-Lim loop, and ``overlap_add``, the OLA kernel
+  (``overlap_add_pallas``; ``dft_f32``/``dft_hi`` under
+  ``parallel.use_pallas``).
+* :mod:`.gl_iteration` — ``gl_fast_iterations``, every fast bf16
+  Griffin-Lim iteration from one call (``gl_fast_iterations_pallas``;
+  ``dft_bf16``/``dft_mix`` under ``parallel.use_pallas``).
 """
 
 KERNELS = ("bigru_scan", "bigru_scan_bwd", "decoder_loop", "teacher_decoder_fwd",
-           "teacher_decoder_bwd", "dkeys", "wgrad")
+           "teacher_decoder_bwd", "dkeys", "wgrad", "conv_bank", "attention_step",
+           "overlap_add", "gl_iteration")

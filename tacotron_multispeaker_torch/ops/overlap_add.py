@@ -1,17 +1,33 @@
-"""Windowed overlap-add for the iSTFT (plain PyTorch).
+"""Windowed overlap-add for the iSTFT: the plain static-shift formulation, and
+the OLA kernel with its plain version.
 
-Port of ``overlap_add_reference`` and ``_wsq_norm`` from
-``tacotron_multispeaker_tpu/ops/overlap_add.py``: the static hop-shift
-decomposition (pad each frame to m·hop; chunk i of frame f lands at output
-row f+i, so the OLA is m shifted adds, no scatter).  This is what the JAX
-Griffin-Lim runs by default; its Pallas OLA kernel (``overlap_add_pallas``)
-is off the serving path and stands in ROADMAP.md.
+Port of ``tacotron_multispeaker_tpu/ops/overlap_add.py``:
+
+* :func:`overlap_add_reference` and :func:`_wsq_norm` — the static hop-shift
+  decomposition (pad each frame to m·hop; chunk i of frame f lands at output
+  row f+i, so the OLA is m shifted adds, no scatter).  The Griffin-Lim loop
+  runs it by default, as the JAX package does.
+* :func:`overlap_add` — ``overlap_add_pallas``: window × frames, overlap-add
+  at ``hop``, ÷ the window-square norm, always in f32 whatever the frames'
+  dtype (f32 or bf16).  Griffin-Lim takes it for every overlap-add of
+  ``dft_f32`` and ``dft_hi`` under ``parallel.use_pallas``.  It runs the
+  plain version for CPU tensors and the CUDA kernel
+  (``csrc/overlap_add.cu``) for CUDA tensors; anything else raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
+
+from . import cuda_build
+
+# launches of the CUDA kernel (the plain versions do not count)
+launches = 0
+
+_INT_MAX = 2**31 - 1
 
 
 def overlap_add_reference(frames: torch.Tensor, window: torch.Tensor, hop: int,
@@ -48,3 +64,55 @@ def _wsq_norm(window: torch.Tensor, nF: int, hop: int) -> torch.Tensor:
     for i in range(m):
         out = out + F.pad(w2[:, i, :], (0, 0, i, m - 1 - i))
     return torch.clamp(out.reshape(Q * hop), min=1e-10)
+
+
+def overlap_add_plain(frames: torch.Tensor, window: torch.Tensor, hop: int) -> torch.Tensor:
+    """Plain version of the kernel: f32 window, sums and norm."""
+    return overlap_add_reference(frames.float(), window.float(), hop)
+
+
+def overlap_add(frames: torch.Tensor, window: torch.Tensor, hop: int) -> torch.Tensor:
+    """frames [B, F, n_fft] f32|bf16, window [n_fft] → [B, n_fft + hop·(F−1)]
+    f32 (see the module docstring)."""
+    if frames.dim() != 3 or window.shape != (frames.shape[-1],):
+        raise ValueError(f"overlap_add takes frames [B, F, n_fft] and window [n_fft]; "
+                         f"got {tuple(frames.shape)}, {tuple(window.shape)}")
+    B, nF, n_fft = frames.shape
+    if frames.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"frames must be float32 or bfloat16, got {frames.dtype}")
+    if window.device != frames.device:
+        raise ValueError(f"window is on {window.device}, frames on {frames.device}")
+    if hop < 1 or nF < 1:
+        raise ValueError(f"overlap_add: hop={hop}, F={nF} must be at least 1")
+    if frames.device.type == "cpu":
+        return overlap_add_plain(frames, window, hop)
+    if frames.device.type != "cuda":
+        raise ValueError(f"overlap_add runs on cpu or cuda, not {frames.device}")
+    out_len = n_fft + hop * (nF - 1)
+    if max(frames.numel(), B * out_len) > _INT_MAX:
+        raise ValueError("overlap_add kernel: sizes must stay below 2^31 elements")
+    frames = frames.contiguous()
+    win = window.float().contiguous()
+    out = torch.empty((B, out_len), dtype=torch.float32, device=frames.device)
+    if B == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.overlap_add_launch(frames.data_ptr(), win.data_ptr(), out.data_ptr(),
+                                     B, nF, n_fft, hop,
+                                     int(frames.dtype == torch.bfloat16), stream)
+    cuda_build.check(err, "overlap_add kernel launch")
+    global launches
+    launches += 1
+    return out
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.library("overlap_add")
+    if not getattr(lib, "_typed", False):
+        lib.overlap_add_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                                           + [ctypes.c_void_p])
+        lib.overlap_add_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib

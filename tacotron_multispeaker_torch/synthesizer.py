@@ -2,8 +2,11 @@
 
 Port of ``tacotron_multispeaker_tpu/synthesizer.py``.  ``synthesize(text[,
 speaker_id])`` returns WAV bytes; ``synthesize_batch`` decodes a padded
-batch: encoder → fused decoder loop → post-net → Griffin-Lim, all on the
-device, then endpoint trimming on the host.  Requests pad to the smallest
+batch: encoder → decoder (the fused loop, or the per-step decode; see
+``Tacotron.generate``) → post-net → Griffin-Lim, all on the device, then
+endpoint trimming on the host.  ``parallel.use_pallas`` routes the conv
+banks, the per-step attention and Griffin-Lim through their kernels, as it
+does in the JAX package.  Requests pad to the smallest
 input bucket that fits, as in the JAX package.
 
 Checkpoints: ``load_variables`` takes a flax ``{"params", "batch_stats"}``
@@ -94,6 +97,7 @@ class Synthesizer:
                 min_level_db=cfg.audio.min_level_db, power=cfg.audio.power,
                 gl_iters=cfg.audio.griffin_lim_iters, generator=gen,
                 gl_method=cfg.audio.gl_method, gl_momentum=cfg.audio.gl_momentum,
+                use_pallas=cfg.parallel.use_pallas,
                 angles=None if gl_angles is None else torch.as_tensor(
                     np.array(gl_angles, np.float32), device=dev))
             wavs = wavs.cpu().numpy()

@@ -38,6 +38,8 @@ def _numpy_variables(preset: str, overrides: str, seed: int = 0):
     ("tiny", "model.num_speakers=3"),
     ("single_speaker", ""),
     ("multispeaker_vctk", ""),
+    ("tiny", "model.attention_type=location"),
+    ("multispeaker_vctk", "model.attention_type=location"),
 ])
 def test_flax_tree_round_trips_bit_exactly(preset, overrides):
     variables = _numpy_variables(preset, overrides)
@@ -75,6 +77,30 @@ def test_layouts_follow_the_flax_conventions():
                           bs["post_cbhg"]["bank"]["bn"]["var"])
     assert np.array_equal(state["post_cbhg.bank.bn.scale"].numpy(),
                           p["post_cbhg"]["bank"]["bn"]["scale"])
+
+
+def test_location_attention_leaves():
+    """loc_conv WIO [W, 1, filters] <-> [filters, 1, W], loc_proj as a
+    Dense, the score bias ``b`` as a 0-d tensor, in all three directions."""
+    ov = "model.attention_type=location,model.num_speakers=3"
+    variables = _numpy_variables("tiny", ov, seed=2)
+    model = create_model("tacotron", tconfig.get_config("tiny", ov))
+    state = convert.flax_to_state_dict(variables, model)
+    att = variables["params"]["attention"]
+    assert att["loc_conv"]["kernel"].shape == (31, 1, 32)
+    assert np.array_equal(state["attention.loc_conv.weight"].numpy(),
+                          att["loc_conv"]["kernel"].transpose(2, 1, 0))
+    assert np.array_equal(state["attention.loc_proj.weight"].numpy(),
+                          att["loc_proj"]["kernel"].T)
+    assert state["attention.b"].shape == () and state["attention.b"].item() == att["b"]
+    model.load_state_dict(state, strict=True)
+    for p in model.parameters():
+        p.grad = torch.full_like(p, 0.5)
+    grads = convert.grads_to_flax(model)
+    assert grads["attention"]["b"].shape == ()
+    assert grads["attention"]["loc_conv"]["kernel"].shape == (31, 1, 32)
+    assert (jax.tree_util.tree_structure(grads)
+            == jax.tree_util.tree_structure(variables["params"]))
 
 
 def test_missing_or_extra_leaves_raise():

@@ -18,7 +18,12 @@ import pytest
 import torch
 
 from tacotron_multispeaker_torch import config as tconfig
+from tacotron_multispeaker_torch.models.modules import _bank_mask
+from tacotron_multispeaker_torch.ops import attention_step as tas
+from tacotron_multispeaker_torch.ops import conv_bank as tcb
 from tacotron_multispeaker_torch.ops import decoder_loop as tdl
+from tacotron_multispeaker_torch.ops import gl_iteration as tgl
+from tacotron_multispeaker_torch.ops import overlap_add as tola
 from tacotron_multispeaker_torch.ops import gru_scan as tgs
 from tacotron_multispeaker_torch.ops import teacher_decoder as ttd
 from tacotron_multispeaker_torch.ops import wgrad as twg
@@ -87,6 +92,32 @@ def teacher_case(rs, S, B, L, H=128, A=128, D=96, n_layers=2, scale=0.1):
     arrays = (f(S, B, 2 * H, sc=0.5), f(S, B, H, sc=0.5), f(B, H, sc=0.3),
               f(n_layers, B, H, sc=0.3), f(B, L, A, sc=0.3), f(B, L, D, sc=1.0), mask)
     return w, arrays
+
+
+def conv_bank_case(rs, B, T, D, K, C):
+    """x [B, T, D], the masked bank weight [K, D, K*C] and bias [K*C] of
+    ``conv_bank`` as float32 numpy (lecun-scaled weight, small bias)."""
+    w = rs.randn(K, D, K * C) / np.sqrt(K * D) * _bank_mask(K, C)
+    return (rs.randn(B, T, D).astype(np.float32), w.astype(np.float32),
+            (rs.randn(K * C) * 0.1).astype(np.float32))
+
+
+def attention_case(rs, B, L, A, D, loc=True):
+    """keys, q, v, memory, mask, location term (or None) of
+    ``attention_step`` as numpy (mask bool; row 0 full length)."""
+    lengths = np.r_[L, rs.randint(1, L + 1, B - 1)]
+    f = lambda *s, sc=1.0: (rs.randn(*s) * sc).astype(np.float32)
+    return (f(B, L, A, sc=0.5), f(B, A, sc=0.5), f(A, sc=A ** -0.5), f(B, L, D),
+            np.arange(L)[None, :] < lengths[:, None], f(B, L, A, sc=0.3) if loc else None)
+
+
+def gl_case(rs, B, F, n_fft):
+    """wf0 [B, F, n_fft], magT [B, F, bins] and a window [n_fft] of
+    ``gl_fast_iterations`` as float32 numpy (the window kept off zero so
+    that the window-square norm stays away from its floor)."""
+    return (rs.randn(B, F, n_fft).astype(np.float32),
+            np.abs(rs.randn(B, F, n_fft // 2 + 1)).astype(np.float32),
+            (np.hanning(n_fft) + 0.05).astype(np.float32))
 
 
 def teacher_weights(w, device="cpu", dtype=torch.float32):
@@ -350,3 +381,147 @@ def train_batch(rs, cfg, B, L, T, vocab=60):
     spk = rs.randint(0, max(cfg.model.num_speakers, 1), B)
     return (inputs.astype(np.int64), in_len.astype(np.int64), mel, lin,
             tg_len.astype(np.int64), spk.astype(np.int64))
+
+
+def _card(arrays, cuda, dtype=None):
+    """numpy arrays → card tensors (float arrays in ``dtype`` when given)."""
+    out = []
+    for a in arrays:
+        t = None if a is None else torch.from_numpy(a).to(cuda)
+        if t is not None and dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        out.append(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bank_kernel_matches_plain_on_card(cuda, dtype):
+    # encoder-bank widths (D=128, K=16, 2048 channels), B*T = 4*37 rows (not
+    # a multiple of the 64-row tile).  f32: the same products summed in
+    # another order -> 1e-5 of the peak; bf16: exact products, and that
+    # sum-order difference may move the final rounding by one ulp
+    rs = np.random.RandomState(12)
+    x, w, b = _card(conv_bank_case(rs, 4, 37, 128, 16, 128), cuda, dtype)
+    before = tcb.launches
+    with torch.inference_mode():
+        y = tcb.conv_bank(x, w, b)
+        ref = tcb.conv_bank_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert tcb.launches == before + 1 and y.dtype == dtype
+    if dtype == torch.float32:
+        assert _err(y, ref) <= 1e-5
+    else:
+        peak = ref.float().abs().max().item()
+        torch.testing.assert_close(y.float(), ref.float(), rtol=2 ** -7, atol=1e-5 * peak)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol_al,tol_ctx", [(torch.float32, 1e-6, 1e-5),
+                                                  (torch.bfloat16, 1e-3, 1e-2)])
+@pytest.mark.parametrize("loc", [False, True])
+def test_attention_step_kernel_matches_plain_on_card(cuda, dtype, tol_al, tol_ctx, loc):
+    # full width (L=192, A=256, D=320), ragged lengths.  f32: sum order only.
+    # bf16: the act roundings are the same on both sides unless tanhf and
+    # torch's tanh differ by an f32 ulp at a bf16 rounding boundary
+    rs = np.random.RandomState(13)
+    args = _card(attention_case(rs, 8, 192, 256, 320, loc), cuda, dtype)
+    args[4] = args[4].bool()
+    before = tas.launches
+    ctx, al = tas.attention_step(*args)
+    ctx_r, al_r = tas.attention_step_reference(*args)
+    torch.cuda.synchronize()
+    assert tas.launches == before + 1
+    assert torch.all(al[~args[4]] == 0.0)
+    assert (al - al_r).abs().max().item() <= tol_al
+    assert (ctx - ctx_r).abs().max().item() <= tol_ctx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_overlap_add_kernel_matches_plain_on_card(cuda, dtype):
+    # n_fft 2048, hop 275 (m = 8 frames per sample, hop not dividing
+    # n_fft); f32 window, sums and norm on both sides -> 1e-5 of the peak
+    rs = np.random.RandomState(14)
+    frames = torch.from_numpy(rs.randn(3, 41, 2048).astype(np.float32)).to(cuda).to(dtype)
+    win = torch.from_numpy((np.hanning(2048) + 0.05).astype(np.float32)).to(cuda)
+    before = tola.launches
+    out = tola.overlap_add(frames, win, 275)
+    ref = tola.overlap_add_plain(frames, win, 275)
+    torch.cuda.synchronize()
+    assert tola.launches == before + 1 and out.shape == (3, 2048 + 275 * 40)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 3e-2)])
+def test_gl_iteration_kernel_matches_plain_on_card(cuda, dtype, tol):
+    # n_fft 2048, hop 275, 45 frames (not a multiple of the 64-row tile), 3
+    # iterations with momentum; each output relative to its peak.  f32: sum
+    # order only, lightly amplified where |S| ~ 0; bf16: flipped roundings
+    # carried by the chaotic phase estimate (the JAX test's 3e-2)
+    rs = np.random.RandomState(15)
+    wf0, mag, win = _card(gl_case(rs, 2, 45, 2048), cuda)
+    wf0 = wf0.to(dtype)
+    before = tgl.launches
+    out = tgl.gl_fast_iterations(wf0, mag, win, 275, 3, 0.99 / 1.99)
+    ref = tgl.gl_fast_iterations_reference(wf0, mag, win, 275, 3, 0.99 / 1.99)
+    torch.cuda.synchronize()
+    assert tgl.launches == before + 1
+    for name, a, b in zip(("sre", "sim", "pre", "pim"), out, ref):
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item(), name
+
+
+@pytest.mark.gpu
+def test_serve_kernels_raise_outside_their_limits_on_card(cuda):
+    rs = np.random.RandomState(16)
+    keys, q, v, mem, mask, _ = _card(attention_case(rs, 1, 60000, 8, 4, False), cuda)
+    before = (tas.launches, tcb.launches, tgl.launches)
+    with pytest.raises(ValueError, match="shared memory"):           # (2A + L) * 4 B
+        tas.attention_step(keys, q, v, mem, mask.bool())
+    x, w, b = _card(conv_bank_case(rs, 1, 8, 4, 3, 2), cuda)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        tcb.conv_bank(x, w.requires_grad_(True), b)
+    wf0, mag, win = _card(gl_case(rs, 1, 4, 64), cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tgl.gl_fast_iterations(wf0.half(), mag, win, 16, 2, 0.0)
+    assert (tas.launches, tcb.launches, tgl.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overrides,launches", [
+    # kernel-gated Bahdanau: both conv banks, the fused decode, one fused
+    # Griffin-Lim call (dft_mix)
+    ("", {"conv_bank": 2, "decoder_loop": 1, "gl_iteration": 1,
+          "attention_step": 0, "overlap_add": 0}),
+    # location attention, exact Griffin-Lim: one attention step a decoder
+    # step, one OLA per iteration and the initial one
+    ("model.attention_type=location,audio.gl_method=dft_f32,audio.griffin_lim_iters=4,"
+     "audio.gl_momentum=0.0", {"conv_bank": 2, "decoder_loop": 0, "gl_iteration": 0,
+                               "attention_step": 10, "overlap_add": 5}),
+])
+def test_synthesizer_with_use_pallas_on_card(cuda, overrides, launches):
+    # f32 tiny model, dropout off, the same phases on both devices.  The
+    # location path (all f32) is held to the CPU as the default path is
+    # above; the dft_mix path runs bf16 Griffin-Lim iterations, whose
+    # chaotic phase estimate lets the two devices' sum orders drift, so its
+    # waveform is held by energy (within 5%) and finiteness
+    cfg = tconfig.get_config("tiny", "model.prenet_dropout=0.0,model.num_speakers=3,"
+                             "model.max_iters=10,parallel.use_pallas=true"
+                             + ("," + overrides if overrides else ""))
+    mods = {"conv_bank": tcb, "decoder_loop": tdl, "gl_iteration": tgl,
+            "attention_step": tas, "overlap_add": tola}
+    cpu = Synthesizer(cfg, device="cpu", seed=4)
+    gpu = Synthesizer(cfg, device=cuda, seed=4)
+    angles = np.random.RandomState(1).uniform(-math.pi, math.pi, (2, 50, 513))
+    before = {k: m.launches for k, m in mods.items()}
+    w_g, a_g = gpu.synthesize_batch(["Hello there.", "Hi."], [1, 2], gl_angles=angles)
+    assert {k: m.launches - before[k] for k, m in mods.items()} == launches
+    w_c, a_c = cpu.synthesize_batch(["Hello there.", "Hi."], [1, 2], gl_angles=angles)
+    np.testing.assert_allclose(a_g, a_c, atol=1e-4)
+    for x, y in zip(w_g, w_c):
+        assert x.shape == y.shape and np.isfinite(x).all()
+        if "dft_f32" in overrides:
+            np.testing.assert_allclose(x, y, atol=1e-3 * np.abs(y).max())
+        else:
+            assert abs(np.square(x).sum() / np.square(y).sum() - 1.0) <= 0.05

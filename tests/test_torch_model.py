@@ -44,7 +44,8 @@ def _fill(abstract, rs):
             return rs.uniform(0.5, 1.5, s.shape).astype(np.float32)
         if name == "var":
             return rs.uniform(0.5, 2.0, s.shape).astype(np.float32)
-        return (rs.randn(*s.shape) * (0.5 if name == "mean" else 0.1)).astype(np.float32)
+        # np.asarray: randn() of the 0-d score bias ``b`` is a Python float
+        return np.asarray(rs.randn(*s.shape) * (0.5 if name == "mean" else 0.1), np.float32)
     out = jax.tree_util.tree_map_with_path(leaf, dict(abstract))
     out.setdefault("batch_stats", {})
     return out
@@ -145,14 +146,73 @@ def test_bahdanau_attention_step_and_masked_softmax():
     port = _port(tatt.BahdanauAttention(A, Q, D), v)
     with torch.inference_mode():
         mem_t = torch.from_numpy(memory)
-        ctx_t, al_t = port(torch.from_numpy(query), port.precompute_keys(mem_t), mem_t,
-                           torch.from_numpy(mask))
+        ctx_t, al_t, _ = port(torch.from_numpy(query), port.precompute_keys(mem_t), mem_t,
+                              torch.from_numpy(mask))
     np.testing.assert_allclose(ctx_t.numpy(), np.asarray(ctx_j), atol=1e-5)
     np.testing.assert_allclose(al_t.numpy(), np.asarray(al_j), atol=1e-6)
     e = rs.randn(B, L).astype(np.float32)
     np.testing.assert_allclose(
         tatt.masked_softmax(torch.from_numpy(e), torch.from_numpy(mask)).numpy(),
         np.asarray(jatt.masked_softmax(jnp.asarray(e), jnp.asarray(mask))), atol=1e-7)
+
+
+def _attention_steps(jm, port, query, memory, mask, n=3):
+    """``n`` steps of a flax attention module and its port on the same
+    queries, carrying each one's state → [(ctx, align)] pairs per step."""
+    def steps(mod, qs, mem, m):
+        keys = mod.precompute_keys(mem)
+        state, out = mod.init_state(qs.shape[1], mem.shape[1]), []
+        for q in qs:
+            ctx, align, state = mod(q, keys, mem, m, state)
+            out.append((ctx, align))
+        return out, state.accumulated
+
+    jargs = (jnp.asarray(query), jnp.asarray(memory), jnp.asarray(mask))
+    v = _variables(jm, *jargs, method=steps)
+    out_j, acc_j = _apply(jm, v, *jargs, method=steps)
+    port = _port(port, v)
+    with torch.inference_mode():
+        mem_t, mask_t = torch.from_numpy(memory), torch.from_numpy(mask)
+        keys, state, out_t = port.precompute_keys(mem_t), None, []
+        for q in torch.from_numpy(query):
+            ctx, align, state = port(q, keys, mem_t, mask_t, state)
+            out_t.append((ctx, align))
+    return out_j, acc_j, out_t, state.accumulated
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_location_attention_steps_match_flax(use_pallas):
+    # three steps, so the location term sees a non-zero cumulative
+    # alignment; the kernel path (interpret mode in JAX, the plain version
+    # here) leaves out the score bias, which the softmax ignores.  f32:
+    # 1e-5 (sum order), alignments 1e-6
+    rs = np.random.RandomState(8)
+    B, L, Q, D, A = 3, 11, 10, 14, 16
+    query = rs.randn(3, B, Q).astype(np.float32)
+    memory = rs.randn(B, L, D).astype(np.float32)
+    mask = np.arange(L)[None, :] < np.array([11, 6, 1])[:, None]
+    jm = jatt.LocationSensitiveAttention(A, location_filters=4, location_kernel=5,
+                                         use_pallas=use_pallas)
+    port = tatt.LocationSensitiveAttention(A, Q, D, filters=4, kernel=5,
+                                           use_pallas=use_pallas)
+    out_j, acc_j, out_t, acc_t = _attention_steps(jm, port, query, memory, mask)
+    for (cj, aj), (ct, at) in zip(out_j, out_t):
+        np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=1e-5)
+        np.testing.assert_allclose(at.numpy(), np.asarray(aj), atol=1e-6)
+    np.testing.assert_allclose(acc_t.numpy(), np.asarray(acc_j), atol=1e-5)
+    assert port.b.item() != 0.0                   # the score bias was carried over
+
+
+def test_conv_bank_use_pallas_matches_flax():
+    # the kernel route's rounding (bias added to the f32 sums) against the
+    # flax module's conv_bank_pallas in interpret mode; f32 -> 1e-5
+    rs = np.random.RandomState(9)
+    x = rs.randn(2, 13, 12).astype(np.float32)
+    jm = jmod.ConvBank(5, 8, use_pallas=True)
+    v = _variables(jm, x, train=False, seed=5)
+    y_j = _apply(jm, v, x, train=False)
+    y_t = _run(_port(tmod.ConvBank(12, 5, 8, use_pallas=True), v), torch.from_numpy(x))
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5)
 
 
 def _generate_pair(overrides, max_iters, seed=0):
@@ -231,7 +291,58 @@ def test_decoder_weights_cache_follows_parameters():
     assert a._dec_weights_cache is None
 
 
-def test_location_attention_is_not_ported_yet():
+@pytest.mark.parametrize("overrides", [
+    # (a) Bahdanau with the kernels' rounding: JAX runs its per-step scan
+    # with attention_step_pallas and conv_bank_pallas (tiny's depths are not
+    # multiples of 128), the port its fused decode and conv-bank route
+    "model.prenet_dropout=0.0,parallel.use_pallas=true",
+    # (b) location-sensitive attention, plain module math and kernel route
+    "model.prenet_dropout=0.0,model.attention_type=location",
+    "model.prenet_dropout=0.0,model.attention_type=location,parallel.use_pallas=true",
+    # (c) a three-layer prenet: the per-step decode where the fused loop
+    # cannot run
+    "model.prenet_dropout=0.0,model.prenet_depths=(64,48,32)",
+])
+def test_generate_per_step_and_kernel_routes_match_jax(overrides):
+    # f32, six autoregressive steps: sum-order differences carried -> 1e-4
+    out_j, out_t = _generate_pair(overrides, max_iters=6)
+    for name, a, b in zip(("mel", "linear", "alignments"), out_j, out_t):
+        a = np.asarray(a)
+        assert a.shape == tuple(b.shape), name
+        np.testing.assert_allclose(b.numpy(), a, atol=1e-4, err_msg=name)
+
+
+def test_per_step_decode_equals_fused_decode():
+    # dropout on: both branches draw the same prenet masks from the same
+    # generator; f32, the fused plain version splits the concatenated
+    # products at the concat boundaries (sum order) -> 1e-5
+    cfg = tconfig.get_config("tiny", "model.num_speakers=3")
+    per_step = tconfig.get_config("tiny", "model.num_speakers=3,"
+                                  "parallel.use_pallas_decode=false")
+    a = create_model("tacotron", cfg).reset_parameters(torch.Generator().manual_seed(0))
+    b = create_model("tacotron", per_step)
+    b.load_state_dict(a.state_dict())
+    inputs = torch.randint(2, 60, (2, 12), generator=torch.Generator().manual_seed(1))
+    lengths, sids = torch.tensor([12, 8]), torch.tensor([2, 0])
+    with torch.inference_mode():
+        outs = [m.eval().generate(inputs, lengths, sids, max_iters=6,
+                                  generator=torch.Generator().manual_seed(3))
+                for m in (a, b)]
+    for name, x, y in zip(("mel", "linear", "alignments"), *outs):
+        torch.testing.assert_close(y, x, atol=1e-5, rtol=0, msg=name)
+
+
+def test_location_attention_training_path_raises():
     cfg = tconfig.get_config("tiny", "model.attention_type=location")
+    model = create_model("tacotron", cfg).reset_parameters(torch.Generator().manual_seed(0))
+    inputs, lengths = torch.randint(2, 60, (2, 7)), torch.tensor([7, 4])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("tacotron", cfg)
+        model(inputs, lengths, torch.rand(2, 10, cfg.audio.num_mels))
+
+
+def test_use_pallas_conv_bank_refuses_training():
+    cfg = tconfig.get_config("tiny", "parallel.use_pallas=true")
+    model = create_model("tacotron", cfg).reset_parameters(torch.Generator().manual_seed(0))
+    inputs, lengths = torch.randint(2, 60, (2, 7)), torch.tensor([7, 4])
+    with pytest.raises(RuntimeError, match="inference-only"):
+        model.train()(inputs, lengths, torch.rand(2, 10, cfg.audio.num_mels))

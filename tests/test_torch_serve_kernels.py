@@ -1,0 +1,174 @@
+"""The plain versions of the kernels behind ``parallel.use_pallas`` against
+the JAX package's Pallas kernels in interpret mode, on the same numpy
+inputs, on the CPU: ``conv_bank_pallas``, ``attention_step_pallas``,
+``overlap_add_pallas`` and ``gl_fast_iterations_pallas``; and the wrappers'
+own checks.  The kernels against their plain versions on the card are in
+``test_torch_gpu.py``, which also makes the numpy input cases.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+# the comparisons with the JAX package run where flax is installed; the card
+# tests of the same ops live in test_torch_gpu.py, which needs no JAX
+pytest.importorskip("flax")
+
+from tacotron_multispeaker_tpu.ops.attention_step import attention_step_pallas  # noqa: E402
+from tacotron_multispeaker_tpu.ops.conv_bank import conv_bank_pallas  # noqa: E402
+from tacotron_multispeaker_tpu.ops.gl_iteration import gl_fast_iterations_pallas  # noqa: E402
+from tacotron_multispeaker_tpu.ops.overlap_add import overlap_add_pallas  # noqa: E402
+from tacotron_multispeaker_torch.ops import attention_step as tas  # noqa: E402
+from tacotron_multispeaker_torch.ops import conv_bank as tcb  # noqa: E402
+from tacotron_multispeaker_torch.ops import gl_iteration as tgl  # noqa: E402
+from tacotron_multispeaker_torch.ops import overlap_add as tola  # noqa: E402
+from test_torch_gpu import attention_case, conv_bank_case, gl_case  # noqa: E402
+
+DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _both(a, name):
+    """numpy → (torch, jax) in the dtype ``name`` (both round to nearest even)."""
+    tdt, jdt = DTYPES[name]
+    return torch.from_numpy(a).to(tdt), jnp.asarray(a, jdt)
+
+
+@pytest.mark.parametrize("B,T,D,K,C,dtype", [
+    (2, 19, 12, 4, 8, "float32"),      # T not a multiple of the TPU's 8
+    (1, 33, 16, 5, 4, "float32"),      # odd K
+    (2, 19, 12, 8, 8, "bfloat16"),     # the serving precision, post-net K
+])
+def test_conv_bank_plain_matches_pallas_interpret(B, T, D, K, C, dtype):
+    rs = np.random.RandomState(K)
+    (x_t, x_j), (w_t, w_j), (b_t, b_j) = (_both(a, dtype) for a in
+                                          conv_bank_case(rs, B, T, D, K, C))
+    y_t = tcb.conv_bank(x_t, w_t, b_t)
+    y_j = np.asarray(conv_bank_pallas(x_j, w_j, b_j, interpret=True).astype(jnp.float32))
+    assert y_t.dtype == x_t.dtype and y_t.shape == (B, T, K * C)
+    if dtype == "float32":
+        # the same f32 products, summed in another order -> 1e-5
+        np.testing.assert_allclose(y_t.numpy(), y_j, atol=1e-5)
+    else:
+        # bf16 products are exact in f32; the f32 sum-order difference (as
+        # above) can move the one final rounding by one bf16 ulp
+        np.testing.assert_allclose(y_t.float().numpy(), y_j, rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("loc", [False, True])
+def test_attention_step_plain_matches_pallas_interpret(dtype, loc):
+    rs = np.random.RandomState(3 + loc)
+    B, L, A, D = 3, 21, 24, 10
+    keys, q, v, mem, mask, lt = attention_case(rs, B, L, A, D, loc)
+    t = [_both(a, dtype) for a in (keys, q, v, mem)]
+    lt_t, lt_j = _both(lt, dtype) if loc else (None, None)
+    ctx_t, al_t = tas.attention_step(*(a for a, _ in t), torch.from_numpy(mask), lt_t)
+    ctx_j, al_j = attention_step_pallas(*(b for _, b in t), jnp.asarray(mask), lt_j,
+                                        interpret=True)
+    assert ctx_t.dtype == al_t.dtype == torch.float32
+    assert ctx_t.shape == (B, D) and al_t.shape == (B, L)
+    assert torch.all(al_t[~torch.from_numpy(mask)] == 0.0)
+    if dtype == "float32":
+        # the same f32 arithmetic in another sum order
+        tol_al, tol_ctx = 1e-6, 1e-5
+    else:
+        # bf16 act rounds after each add and after tanh on both sides; the
+        # two libraries' f32 tanh may differ by an ulp, which can flip a bf16
+        # rounding of one act element (2^-8 of it) and move an energy by
+        # ~|v_a|·2^-8 ~ 1e-3 -> alignments 1e-3, context 1e-2 (|memory| ~ 3)
+        tol_al, tol_ctx = 1e-3, 1e-2
+    np.testing.assert_allclose(al_t.numpy(), np.asarray(al_j), atol=tol_al)
+    np.testing.assert_allclose(ctx_t.numpy(), np.asarray(ctx_j), atol=tol_ctx)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_overlap_add_plain_matches_pallas_interpret(dtype):
+    # hop 100 does not divide n_fft 256 (m = 3); window, sums and norm are
+    # f32 on both sides whatever the frames' dtype: only the sum order of
+    # the <= 3 frames per sample differs -> 1e-5 of the peak
+    rs = np.random.RandomState(5)
+    frames = rs.randn(3, 7, 256).astype(np.float32)
+    win = (np.hanning(256) + 0.1).astype(np.float32)
+    f_t, f_j = _both(frames, dtype)
+    out_t = tola.overlap_add(f_t, torch.from_numpy(win), 100)
+    out_j = np.asarray(overlap_add_pallas(f_j, jnp.asarray(win), 100, interpret=True))
+    assert out_t.dtype == torch.float32 and out_t.shape == (3, 256 + 100 * 6)
+    np.testing.assert_allclose(out_t.numpy(), out_j, atol=1e-5 * np.abs(out_j).max())
+
+
+@pytest.mark.parametrize("F,n_fft,hop,n_iters,mom", [
+    (6, 128, 32, 3, 0.0),
+    (11, 128, 48, 2, 0.99 / 1.99),   # hop not dividing n_fft, odd frames
+    (8, 256, 100, 4, 0.5),
+])
+def test_gl_fast_iterations_plain_matches_pallas_interpret(F, n_fft, hop, n_iters, mom):
+    # the parametrisations of the JAX package's own kernel test; both sides
+    # round at the same points (bf16 frames and matmul operands, f32 sums),
+    # but phase estimation is chaotic where |spectrum| ~ 0, so a sum-order
+    # difference there grows over the iterations: 3e-2 of each output's
+    # peak, the JAX test's own tolerance
+    rs = np.random.RandomState(0)
+    wf0, mag, win = gl_case(rs, 2, F, n_fft)
+    out_t = tgl.gl_fast_iterations(torch.from_numpy(wf0).to(torch.bfloat16),
+                                   torch.from_numpy(mag), torch.from_numpy(win), hop,
+                                   n_iters, mom)
+    out_j = gl_fast_iterations_pallas(jnp.asarray(wf0, jnp.bfloat16), jnp.asarray(mag),
+                                      jnp.asarray(win), hop, n_iters, mom, interpret=True)
+    for name, a, b in zip(("sre", "sim", "pre", "pim"), out_t, out_j):
+        b = np.asarray(b)
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert np.abs(a.numpy() - b).max() < 3e-2 * max(np.abs(b).max(), 1e-6), name
+
+
+def test_gl_shift_coeffs_are_built_once_per_geometry():
+    # the kernel's banded OLA coefficients, cached by the window's values:
+    # equal to shift_coeffs, and one entry for equal windows in new tensors
+    win = torch.from_numpy(gl_case(np.random.RandomState(7), 1, 1, 64)[2])
+    tgl._device_shift_coeffs.cache_clear()
+    for w in (win, win.clone()):
+        N, Sd = tgl._device_shift_coeffs(w.numpy().tobytes(), 9, 20, torch.device("cpu"))
+    assert tgl._device_shift_coeffs.cache_info().misses == 1
+    for got, want in zip((N, Sd), tgl.shift_coeffs(win, 9, 20)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_new_kernel_wrappers_check_their_inputs():
+    rs = np.random.RandomState(6)
+    x, w, b = map(torch.from_numpy, conv_bank_case(rs, 1, 5, 4, 3, 2))
+    with pytest.raises(ValueError, match="do not fit"):
+        tcb.conv_bank(x, w[:, :3], b)
+    with pytest.raises(TypeError, match="bias"):
+        tcb.conv_bank(x, w, b.double())
+    keys, q, v, mem, mask, lt = (None if a is None else torch.from_numpy(a)
+                                 for a in attention_case(rs, 2, 5, 8, 4))
+    with pytest.raises(ValueError, match="location_term"):
+        tas.attention_step(keys, q, v, mem, mask, lt[:, :4])
+    with pytest.raises(TypeError, match="mask"):
+        tas.attention_step(keys, q, v, mem, mask.float(), lt)
+    with pytest.raises(TypeError, match="memory"):
+        tas.attention_step(keys.bfloat16(), q.bfloat16(), v.bfloat16(), mem, mask)
+    with pytest.raises(ValueError, match="window"):
+        tola.overlap_add(torch.zeros(1, 3, 16), torch.ones(15), 4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tola.overlap_add(torch.zeros(1, 3, 16, dtype=torch.float64), torch.ones(16), 4)
+    wf0, mag, win = map(torch.from_numpy, gl_case(rs, 1, 4, 32))
+    with pytest.raises(ValueError, match="magT"):
+        tgl.gl_fast_iterations(wf0, mag[..., :5], win, 8, 2, 0.0)
+    with pytest.raises(ValueError, match="n_iters"):
+        tgl.gl_fast_iterations(wf0, mag, win, 8, 0, 0.0)
+    meta = torch.zeros(1, 3, 16, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tola.overlap_add(meta, torch.ones(16, device="meta"), 4)
+
+
+def test_conv_bank_refuses_a_gradient():
+    # the Pallas kernel has no VJP: the port's wrapper raises rather than
+    # give the plain version's gradient on the CPU and fail on the card
+    rs = np.random.RandomState(7)
+    x, w, b = map(torch.from_numpy, conv_bank_case(rs, 1, 6, 4, 3, 2))
+    w.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        tcb.conv_bank(x, w, b)
+    with torch.no_grad():
+        assert tcb.conv_bank(x, w, b).shape == (1, 6, 6)

@@ -41,7 +41,7 @@ def _variables(jcfg, seed=0):
             return (rs.randn(*s.shape) / np.sqrt(fan_in)).astype(np.float32)
         if name in ("scale", "var"):
             return rs.uniform(0.5, 1.5, s.shape).astype(np.float32)
-        return (rs.randn(*s.shape) * 0.1).astype(np.float32)
+        return np.asarray(rs.randn(*s.shape) * 0.1, np.float32)
     return jax.tree_util.tree_map_with_path(
         leaf, {"params": st.params, "batch_stats": st.batch_stats})
 
@@ -68,6 +68,28 @@ def test_synthesize_batch_matches_jax():
     wavs_t, al_t = syn.load_variables(variables).synthesize_batch(
         texts, sids, seed=seed, gl_angles=np.asarray(angles))
     assert al_t.shape == al_j.shape
+    np.testing.assert_allclose(al_t, al_j, atol=1e-4)
+    for w_t, w_j in zip(wavs_t, wavs_j):
+        assert w_t.shape == w_j.shape
+        np.testing.assert_allclose(w_t, w_j, atol=1e-3 * np.abs(w_j).max())
+
+
+def test_synthesize_batch_with_use_pallas_matches_jax():
+    # parallel.use_pallas: the JAX package runs conv_bank_pallas, the
+    # per-step scan with attention_step_pallas and overlap_add_pallas for
+    # every overlap-add of dft_f32 (interpret mode), the port their plain
+    # versions; f32, dropout off, the same initial phases -> as above
+    ov = SYNTH_OVERRIDES + ",parallel.use_pallas=true,model.attention_type=location"
+    jcfg = jconfig.get_config("tiny", ov)
+    variables = _variables(jcfg, seed=1)
+    texts, sids, seed = ["Hello there, world.", "A short one."], [1, 2], 4
+    wavs_j, al_j = JSynthesizer(jcfg).load_variables(variables).synthesize_batch(
+        texts, sids, seed=seed)
+    frames = jcfg.model.max_iters * jcfg.model.outputs_per_step
+    angles = jax.random.uniform(jax.random.PRNGKey(seed), (2, frames, jcfg.audio.num_freq),
+                                minval=-math.pi, maxval=math.pi)
+    syn = Synthesizer(tconfig.get_config("tiny", ov), device="cpu").load_variables(variables)
+    wavs_t, al_t = syn.synthesize_batch(texts, sids, seed=seed, gl_angles=np.asarray(angles))
     np.testing.assert_allclose(al_t, al_j, atol=1e-4)
     for w_t, w_j in zip(wavs_t, wavs_j):
         assert w_t.shape == w_j.shape
