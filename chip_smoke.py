@@ -11,7 +11,7 @@ Phases (no failure is caught; any exception exits non-zero):
    with nvcc (in parallel) and prints the build seconds and ptxas register,
    shared memory and spill lines.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   serving and training paths' shapes, in float32 and bfloat16, every
+   serving, training and sharded paths' shapes, in float32 and bfloat16, every
    output by name, and times kernel, plain version and, where one PyTorch
    call computes the same function, that call (``library_ms``).
 4. Checks ``generate`` at full-width ``multispeaker_vctk``, dropout off: in
@@ -38,9 +38,19 @@ Phases (no failure is caught; any exception exits non-zero):
    with their plain versions swapped in; then five timed steps at full
    width (B=32, L=192, T=1000, bf16) with the launches of every kernel
    checked per step.
+8. Sharded synthesis (``Synthesizer.make_sharded_synth``): four ranks
+   spawned on the one card (gloo over a ``file://`` store).  An f32
+   ``shard_seq`` decode of 20 steps against the single-process unsharded
+   port on the card, then full-width ``pod_synthesis`` (2048 x 128 speaker
+   table, 400 steps, bucket 192) on each path of ``SHARD_PATHS``:
+   ``shard_dp`` (mesh (4, 1), B=32), ``shard_hybrid`` ((1, 4), B=32) and
+   ``shard_seq`` ((1, 4), ``hybrid_model_axis=false``, B=8: the sequence-
+   sharded decode with kernel 10), each rank's launches checked per
+   request, request ms and audio-s/s, a profile on rank 0.
 
-Each path (three serving paths, training) is driven with every launch
-count set to 0 just before it and read just after.  Prints the per-request
+Each path (three serving paths, training, three sharded paths) is driven
+with every launch count set to 0 just before it and read just after (on
+each rank for the sharded paths).  Prints the per-request
 and per-step times, one ``kernels`` JSON line (each kernel's time, plain
 time, library time, bound, launches on each path's run), and as its last
 line ``{"ok": true, "device": {...}}``.
@@ -107,6 +117,7 @@ def _counters():
             "wgrad": (wgrad, "launches"),
             "conv_bank": (conv_bank, "launches"),
             "attention_step": (attention_step, "launches"),
+            "attention_step_partial": (attention_step, "partial_launches"),
             "overlap_add": (overlap_add, "launches"),
             "gl_iteration": (gl_iteration, "launches")}
 
@@ -708,6 +719,78 @@ def phase_attention_step():
                      "the location term"}
 
 
+def _device_ms(fn, reps, kernel):
+    """Device time a launch of the kernel whose name holds ``kernel``, from
+    the profiler over ``reps`` calls of ``fn``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(spans) / len(spans) / 1e3 if spans else float("nan")
+
+
+def _partial_case(B, L, A, D, dtype, seed):
+    """One L-shard of the sequence-sharded decode: rows 1 and 3 end in an
+    earlier shard (fully masked here), the others inside this one or past it."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s, sc=1.0: (torch.randn(*s, generator=g, device="cuda") * sc).to(dtype)
+    lengths = torch.randint(1, 2 * L, (B,), generator=g, device="cuda")
+    lengths[[1, 3]] = 0
+    mask = (torch.arange(L, device="cuda")[None, :] < lengths[:, None]).contiguous()
+    return rn(B, L, A, sc=0.5), rn(B, A, sc=0.5), rn(A, sc=A ** -0.5), rn(B, L, D), mask
+
+
+def phase_attention_partial():
+    """Kernel 10 at the full-width shard of ``shard_seq``: B=8, L/M = 192/4,
+    A=256, memory depth D = 256 + 128 (encoder + speaker)."""
+    import torch
+    from tacotron_multispeaker_torch.ops import attention_step as ast
+    B, L, A, D = 8, 48, 256, 384
+    # absolute, per output.  f32: the same arithmetic in another sum order.
+    # bf16: an f32-ulp tanh difference may flip one bf16 rounding of act and
+    # move an energy by ~|v|*2^-8 (p, m 1e-3; s sums 48 weights, 1e-2), and
+    # the context rounds that weight to bf16 (2^-8 * |memory| ~ 1e-2)
+    tol = {torch.float32: {"ctx": 1e-4, "p": 1e-5, "m": 1e-5, "s": 1e-4},
+           torch.bfloat16: {"ctx": 2e-2, "p": 1e-3, "m": 1e-3, "s": 1e-2}}
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _partial_case(B, L, A, D, dtype, seed=41)
+        got = ast.attention_step_partial(*args)
+        ref = ast.attention_step_partial_reference(*args)
+        torch.cuda.synchronize()
+        errs = {n: (a - b).abs().max().item() for n, a, b in zip(("ctx", "p", "m", "s"), got, ref)}
+        ctx, p, m, sm = (t[[1, 3]] for t in got)
+        exact = bool((m == -1e9).all() and (sm == 0).all() and (p == 0).all()
+                     and (ctx == 0).all())
+        log(f"[attention_step_partial] B={B} L={L} A={A} D={D} {str(dtype)[6:]}: "
+            + ", ".join(f"{n} {e:.3e} (tol {tol[dtype][n]:.0e})" for n, e in errs.items())
+            + f"; fully masked rows exact: {exact}")
+        if not (exact and all(e <= tol[dtype][n] for n, e in errs.items())):
+            raise AssertionError("attention_step_partial disagrees with its plain version")
+        worst = max(worst, *errs.values())
+    args = _partial_case(B, L, A, D, torch.float32, seed=42)     # the path's dtype
+    ms = cuda_time_ms(lambda: ast.attention_step_partial(*args), reps=200)
+    plain_ms = cuda_time_ms(lambda: ast.attention_step_partial_reference(*args), reps=50)
+    device_ms = _device_ms(lambda: ast.attention_step_partial(*args), 100, "attention_step")
+    out_bytes = B * (D + L + 2) * 4
+    bound = _bound_ms(_nbytes(*args) + out_bytes, f32_flops=B * L * (3 * A + 2 * D))
+    log(f"[attention_step_partial] B={B} L={L} A={A} D={D} f32: kernel {ms:.4f} ms a call "
+        f"back to back (the wrapper's host time bounds it), {device_ms:.4f} ms of device "
+        f"time a launch (profiler); plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms "
+        f"({bound[1]})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "shape": f"B={B} L={L} A={A} D={D} f32 (one of 4 L-shards)",
+            "error": "ctx_u, p_u, m, s absolute, f32 and bf16, fully masked rows exact"}
+
+
 def _window(n_fft=2048, win_length=1102):
     import torch
     from tacotron_multispeaker_torch.audio.dsp import hann_window
@@ -996,8 +1079,8 @@ def phase_train_bf16():
 
 TRAIN_LAUNCHES = {"bigru_scan": 2, "decoder_loop": 0, "bigru_scan_bwd": 2,
                   "teacher_decoder_fwd": 1, "dkeys": 1, "teacher_decoder_bwd": 1,
-                  "wgrad": 3, "conv_bank": 0, "attention_step": 0, "overlap_add": 0,
-                  "gl_iteration": 0}
+                  "wgrad": 3, "conv_bank": 0, "attention_step": 0,
+                  "attention_step_partial": 0, "overlap_add": 0, "gl_iteration": 0}
 
 
 def phase_train():
@@ -1267,6 +1350,188 @@ def phase_serve(path="serve", texts=SERVE_TEXTS):
 
 
 # --------------------------------------------------------------------------
+# phase 8: sharded synthesis (make_sharded_synth), four ranks on the card
+# --------------------------------------------------------------------------
+
+# the sharded paths: pod_synthesis (full Tacotron-1 widths, 2048 x 128
+# speaker table, 400 decoder steps, model_parallel_size 4) on a mesh of four
+# ranks sharing the one card (gloo), input bucket 192
+SHARD_PATHS = {
+    "shard_dp": ((4, 1), 32, ""),
+    "shard_hybrid": ((1, 4), 32, ""),
+    "shard_seq": ((1, 4), 8, "parallel.hybrid_model_axis=false"),
+}
+SHARD_REQUESTS = 2          # timed requests per path (after one warm-up)
+
+
+def shard_launches(path, n_steps):
+    """Each kernel's launches on one rank for one request of ``n_steps``."""
+    want = {name: 0 for name in _counters()}
+    want["bigru_scan"] = 2                       # encoder and post-net CBHG
+    if path == "shard_seq":
+        want["attention_step_partial"] = n_steps  # one per step per model rank
+    else:
+        want["decoder_loop"] = 1
+    return want
+
+
+def _shard_batch(cfg, B, L=192):
+    """A global batch: SERVE_TEXTS cycled, padded to ``L``, speakers spread
+    over the whole table."""
+    import numpy as np
+    from tacotron_multispeaker_torch.text import text_to_sequence
+    seqs = [text_to_sequence(SERVE_TEXTS[i % len(SERVE_TEXTS)][0], cfg.cleaners)[:L]
+            for i in range(B)]
+    inputs = np.zeros((B, L), np.int64)
+    for i, q in enumerate(seqs):
+        inputs[i, :len(q)] = q
+    sids = (np.arange(B) * 263 + 5) % cfg.model.num_speakers
+    return inputs, np.array([len(q) for q in seqs]), sids
+
+
+def _shard_rank(rank, check_case):
+    """One rank of phase 8: the f32 ``shard_seq`` check (its outputs go back
+    to the parent), then each sharded path: a warm-up and timed requests
+    with this rank's launches checked per request, counts set to 0 just
+    before the path's run and read just after."""
+    import torch
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.parallel import make_mesh
+    from tacotron_multispeaker_torch.synthesizer import Synthesizer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    overrides, inputs, lengths, sids, angles, iters = check_case
+    cfg = get_config("pod_synthesis", overrides + ",parallel.hybrid_model_axis=false")
+    mesh = make_mesh(cfg.parallel, data=1, model=4)
+    fn = Synthesizer(cfg, mesh=mesh, seed=3).make_sharded_synth(mesh, *inputs.shape, iters)
+    out["check"] = [t.cpu() for t in fn(inputs, lengths, sids, gl_angles=angles)]
+
+    # one all-reduce of the step's context size between the four ranks: on
+    # the card tensor (what the port runs) and, under gloo, staged through
+    # host memory
+    import torch.distributed as dist
+    ctx = torch.zeros(8, 384, device=mesh.device)
+    out["backend"] = dist.get_backend()
+    out["allreduce_ms_staged"] = float("nan")
+    for staged in (False, True)[:1 + (out["backend"] == "gloo")]:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            if staged:
+                host = ctx.cpu()
+                dist.all_reduce(host)
+                ctx.copy_(host)
+            else:
+                dist.all_reduce(ctx)
+        torch.cuda.synchronize()
+        out[f"allreduce_ms_{'staged' if staged else 'card'}"] = (
+            (time.perf_counter() - t0) / 50 * 1e3)
+
+    for path, ((n_data, n_model), B, ov) in SHARD_PATHS.items():
+        cfg = get_config("pod_synthesis", ov)
+        steps = cfg.model.max_iters
+        mesh = make_mesh(cfg.parallel, data=n_data, model=n_model)
+        syn = Synthesizer(cfg, mesh=mesh, seed=0)
+        fn = syn.make_sharded_synth(mesh, B, 192)
+        inputs, lengths, sids = _shard_batch(cfg, B)
+        reset_counts()
+        times, launches = [], []
+        for n in range(1 + SHARD_REQUESTS):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wav, align, mel = fn(inputs, lengths, sids, seed=n)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append(_delta(before))
+            samples = steps * cfg.model.outputs_per_step * cfg.audio.hop_length
+            if not (wav.shape[0] == B and 0 < wav.shape[1] <= samples
+                    and align.shape == (B, steps, 192) and torch.isfinite(wav).all()
+                    and torch.isfinite(mel).all()):
+                raise AssertionError(f"{path}: rank {rank} got wav {tuple(wav.shape)}, "
+                                     f"alignments {tuple(align.shape)} or non-finite values")
+        total = read_counts()
+        want = shard_launches(path, steps)
+        if any(got != want for got in launches):
+            raise AssertionError(f"{path}: rank {rank} launches {launches}, expected {want} "
+                                 f"per request")
+        # one more request on every rank (its collectives need them all),
+        # profiled on rank 0
+        request = lambda: fn(inputs, lengths, sids, seed=9)
+        if rank == 0:
+            phase_profile([(f"{path} B={B} (rank 0 of 4)", request)])
+        else:
+            request()
+            torch.cuda.synchronize()
+        out[path] = {"times": times, "launches": total, "audio_s": wav.shape[1] * B
+                     / cfg.audio.sample_rate, "table_rows": tuple(
+                         syn.model.speaker_table.weight.shape)}
+    return out
+
+
+def phase_shard():
+    """Sharded synthesis through ``Synthesizer.make_sharded_synth`` on four
+    ranks sharing the card (torch.multiprocessing, gloo over a ``file://``
+    store): an f32 check of ``shard_seq`` (20 steps, B=8, bucket 192)
+    against the single-process unsharded port on the card, then full-width
+    ``pod_synthesis`` on each path of ``SHARD_PATHS``.  Returns each path's
+    launches summed over the four ranks."""
+    import numpy as np
+    import torch
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.parallel import run_ranks
+    from tacotron_multispeaker_torch.synthesizer import Synthesizer
+    # f32, dropout off, exact Griffin-Lim, the same phases on both sides
+    ov, iters = "model.compute_dtype=float32,model.prenet_dropout=0.0,audio.gl_method=dft_f32", 20
+    cfg = get_config("pod_synthesis", ov)
+    inputs, lengths, sids = _shard_batch(cfg, 8)
+    lengths[2] = 30                         # ends in the first of four L-shards
+    angles = np.random.RandomState(8).uniform(
+        -np.pi, np.pi, (8, iters * cfg.model.outputs_per_step, cfg.audio.num_freq))
+    dev = torch.device("cuda")
+    ref = Synthesizer(cfg, device=dev, seed=3)._make_fn(iters)(
+        torch.as_tensor(inputs, device=dev), torch.as_tensor(lengths, device=dev),
+        torch.as_tensor(sids, device=dev), torch.Generator(device=dev),
+        torch.as_tensor(angles, dtype=torch.float32, device=dev))
+    ref = [t.cpu() for t in ref]
+    t0 = time.perf_counter()
+    outs = run_ranks(_shard_rank, 4, (ov, inputs, lengths, sids, angles, iters), timeout=900)
+    log(f"[shard] four ranks on {torch.cuda.device_count()} card(s), all paths: "
+        f"{time.perf_counter() - t0:.2f} s")
+    log(f"[shard] one {outs[0]['backend']} all-reduce of [8, 384] f32 among the four ranks, "
+        "per rank: on the card tensor " + ", ".join(f"{o['allreduce_ms_card']:.3f}" for o in outs)
+        + " ms; staged through host memory "
+        + ", ".join(f"{o['allreduce_ms_staged']:.3f}" for o in outs) + " ms")
+    # test_parallel.py's tolerances for the sharded decode (mel 2e-3,
+    # alignments 1e-4); the waveform to 1e-3 of its peak
+    tol = {"wav": 1e-3 * ref[0].abs().max().item(), "align": 1e-4, "mel": 2e-3}
+    for rank, out in enumerate(outs):
+        for name, a, b in zip(("wav", "align", "mel"), out["check"], ref):
+            err = (a - b).abs().max().item()
+            log(f"[shard_seq] f32 pod_synthesis B=8 L=192 {iters} steps, rank {rank} vs the "
+                f"unsharded port on the card: {name} {tuple(a.shape)} max|diff| {err:.3e} "
+                f"(tol {tol[name]:.1e})")
+            if not (a.shape == b.shape and err <= tol[name]):
+                raise AssertionError(f"shard_seq on rank {rank} disagrees: {name} {err}")
+    launches = {}
+    for path, ((n_data, n_model), B, _) in SHARD_PATHS.items():
+        per_rank = [o[path] for o in outs]
+        req = [max(r["times"][n] for r in per_rank) for n in range(1 + SHARD_REQUESTS)]
+        audio_s = per_rank[0]["audio_s"]
+        log(f"[{path}] mesh ({n_data}, {n_model}) B={B} bucket 192 400 steps, speaker table "
+            f"rows on each rank {[r['table_rows'][0] for r in per_rank]}: warm-up "
+            f"{req[0] * 1e3:.2f} ms; requests " + ", ".join(
+                f"{t * 1e3:.2f} ms ({audio_s / t:.2f} audio-s/s)" for t in req[1:])
+            + f" ({audio_s:.2f} s of audio decoded a request)")
+        launches[path] = {k: sum(r["launches"][k] for r in per_rank) for k in _counters()}
+        log(f"[{path}] launches over the run, summed over the 4 ranks: "
+            f"{json.dumps(launches[path])}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 6: where the time goes
 # --------------------------------------------------------------------------
 
@@ -1327,6 +1592,9 @@ KERNEL_META = {
                   "tacotron_multispeaker_tpu/ops/conv_bank.py:37", "serve_pallas"),
     "attention_step": ("tacotron_multispeaker_torch/csrc/attention_step.cu",
                        "tacotron_multispeaker_tpu/ops/attention_step.py:53", "serve_location"),
+    "attention_step_partial": ("tacotron_multispeaker_torch/csrc/attention_step.cu",
+                               "tacotron_multispeaker_tpu/ops/attention_step.py:130",
+                               "shard_seq"),
     "overlap_add": ("tacotron_multispeaker_torch/csrc/overlap_add.cu",
                     "tacotron_multispeaker_tpu/ops/overlap_add.py:115", "serve_location"),
     "gl_iteration": ("tacotron_multispeaker_torch/csrc/gl_iteration.cu",
@@ -1343,6 +1611,8 @@ LIBRARY_NULL = {
              "the kernel's function",
     "attention_step": "scaled_dot_product_attention is dot-product attention; no one "
                       "PyTorch call computes additive (tanh) attention",
+    "attention_step_partial": "no one PyTorch call computes an unnormalised additive "
+                              "(tanh) attention partial with its local max and sum",
     "overlap_add": "no one PyTorch call windows, overlap-adds and divides by the "
                    "window-square norm (torch.istft also runs the inverse FFT)",
     "gl_iteration": "no one PyTorch call runs Griffin-Lim iterations",
@@ -1363,6 +1633,7 @@ def main() -> int:
     kern["bigru_scan_bwd"], bigru_wgrad_err = phase_bigru_bwd()
     kern.update(phase_teacher(bigru_wgrad_err))
     kern.update(conv_bank=phase_conv_bank(), attention_step=phase_attention_step(),
+                attention_step_partial=phase_attention_partial(),
                 overlap_add=phase_overlap_add(), gl_iteration=phase_gl_iteration())
     for path in ("serve", "serve_location"):
         phase_generate_reference(path)
@@ -1372,10 +1643,11 @@ def main() -> int:
     phase_train_reference()
     phase_train_bf16()
     launches["train"] = phase_train()
+    launches.update(phase_shard())
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[path][name], "launches_by_path": {
-             p: launches[p][name] for p in (*PATHS, "train")},
+             p: launches[p][name] for p in (*PATHS, "train", *SHARD_PATHS)},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name].get("library_ms"),

@@ -65,9 +65,13 @@ def _leaf_rules(model: nn.Module):
                                f"({type(mod).__name__})")
 
 
-def flax_to_state_dict(variables, model: nn.Module) -> dict[str, torch.Tensor]:
+def flax_to_state_dict(variables, model: nn.Module,
+                       shards: dict[str, slice] | None = None) -> dict[str, torch.Tensor]:
     """Flax variables (numpy tree) → a full ``state_dict`` for ``model``.
 
+    ``shards`` (parallel.mesh.param_shards): port tensor name → the rows
+    (dim 0) a rank of a mesh keeps; those tensors take only these rows of
+    their flax leaf, as ``P("model", None)`` cuts the speaker table.
     Raises if a port tensor has no flax leaf, if a flax leaf is left over,
     or if a shape disagrees."""
     used = set()
@@ -79,6 +83,8 @@ def flax_to_state_dict(variables, model: nn.Module) -> dict[str, torch.Tensor]:
             node = node[p]
         arr = np.asarray(node)
         arr = to_port(arr) if to_port is not None else arr
+        if shards and key in shards:
+            arr = arr[shards[key]]
         t = torch.tensor(np.array(arr, order="C"))
         if tuple(t.shape) != tuple(expected[key].shape):
             raise ValueError(f"{key}: flax {'/'.join(path)} gives shape "

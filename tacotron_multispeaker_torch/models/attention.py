@@ -8,7 +8,10 @@ alignments.  With ``use_pallas`` (the JAX package's switch) the energies,
 softmax and context of a step run in the attention-step kernel
 (ops/attention_step.py); otherwise in the plain module math.  The fused
 decoder loop (ops/decoder_loop.py) runs Bahdanau's step inside its own
-kernel.
+kernel.  With ``seq_mesh`` (the sequence-sharded decode of
+``Synthesizer.make_sharded_synth``) Bahdanau's keys, memory and mask are
+this rank's slice of the encoder length, and the step is the distributed
+softmax of ops/sharded_attention.py, in f32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention_step as as_ops
+from ..ops.sharded_attention import make_sharded_attention_step
 from .modules import Dense
 
 
@@ -43,12 +47,19 @@ def init_state(batch: int, length: int, device) -> AttentionState:
 
 
 class BahdanauAttention(nn.Module):
-    """Additive content attention: score = v·tanh(W_q q + W_k m)."""
+    """Additive content attention: score = v·tanh(W_q q + W_k m).
+
+    ``seq_mesh``: keys, memory and mask hold this rank's slice of L, and a
+    step runs the sharded distributed softmax, its per-shard half in kernel
+    10 unless ``seq_kernel`` is off (``parallel.use_pallas_seq_attention``)."""
 
     def __init__(self, units: int, query_depth: int, memory_depth: int,
-                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False,
+                 seq_mesh=None, seq_kernel: bool = True):
         super().__init__()
         self.use_pallas = use_pallas
+        self.seq_step = (None if seq_mesh is None
+                         else make_sharded_attention_step(seq_mesh, use_kernel=seq_kernel))
         self.query = Dense(query_depth, units, bias=False, dtype=dtype)
         self.memory = Dense(memory_depth, units, bias=False, dtype=dtype)
         self.v = nn.Parameter(torch.empty(units))
@@ -69,7 +80,12 @@ class BahdanauAttention(nn.Module):
         q = self.query(query)
         loc = self._location_term(state, keys)
         v = self.v.to(keys.dtype)
-        if self.use_pallas:
+        if self.seq_step is not None:
+            # f32 in and out of the sharded step, as the JAX attention.py:94-98 does
+            context, align = self.seq_step(keys.float(), q.float(), self.v.float(),
+                                           memory.float(), mask)
+            context = context.to(memory.dtype)
+        elif self.use_pallas:
             # the location-sensitive score bias shifts every energy alike and
             # the softmax ignores it, so the kernel leaves it out (as in JAX)
             context, align = as_ops.attention_step(keys.contiguous(), q.contiguous(), v,
@@ -112,12 +128,18 @@ class LocationSensitiveAttention(BahdanauAttention):
 
 
 def make_attention(model_cfg, memory_depth: int, dtype: torch.dtype = torch.float32,
-                   use_pallas: bool = False) -> nn.Module:
+                   use_pallas: bool = False, seq_mesh=None,
+                   seq_kernel: bool = True) -> nn.Module:
     m = model_cfg
     if m.attention_type == "bahdanau":
         return BahdanauAttention(m.attention_depth, m.decoder_depth, memory_depth, dtype,
-                                 use_pallas)
+                                 use_pallas, seq_mesh, seq_kernel)
     if m.attention_type == "location":
+        if seq_mesh is not None:
+            raise NotImplementedError(
+                "sequence-sharded decode supports bahdanau attention only "
+                "(location conv over the cumulative alignments would need a "
+                "halo exchange)")
         return LocationSensitiveAttention(
             m.attention_depth, m.decoder_depth, memory_depth,
             m.attention_location_filters, m.attention_location_kernel, dtype, use_pallas)

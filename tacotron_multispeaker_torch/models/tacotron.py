@@ -15,6 +15,11 @@ also routes both conv banks through their kernel (ops/conv_bank.py).
 Module and parameter names mirror the flax tree, so convert.py maps one
 onto the other by name.
 
+With ``seq_mesh`` (``Synthesizer.make_sharded_synth``'s sequence-sharded
+branch) ``generate`` cuts the encoder memory, keys and mask to this rank's
+slice of the encoder length, and the per-step decode's attention combines
+the slices across the mesh's model axis (models/attention.py).
+
 ``self.training`` plays the part of flax's ``train`` flag for the
 BatchNorms (batch statistics and running-statistic updates in training
 mode); ``generate`` always uses the running statistics, as the JAX
@@ -145,17 +150,19 @@ class Tacotron(nn.Module):
     """The full model; ``forward`` is the teacher-forced training path,
     ``generate`` the autoregressive inference path."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, seq_mesh=None):
         super().__init__()
         c, m = cfg, cfg.model
         self.cfg = cfg
+        self.seq_mesh = seq_mesh
         self.dtype = _compute_dtype(cfg)
         memory_depth = m.encoder_depth + _speaker_dim(cfg, "memory")
         self.encoder = Encoder(c, self.dtype)
         self.dec_prenet = Prenet(c.audio.num_mels, m.prenet_depths,
                                  m.prenet_dropout, self.dtype)
         self.attention = make_attention(m, memory_depth, self.dtype,
-                                        use_pallas=c.parallel.use_pallas)
+                                        use_pallas=c.parallel.use_pallas, seq_mesh=seq_mesh,
+                                        seq_kernel=c.parallel.use_pallas_seq_attention)
         self.decoder_cell = DecoderCell(c, memory_depth, self.dtype)
         half = m.postnet_depth // 2
         self.post_cbhg = CBHG(c.audio.num_mels, m.postnet_bank_k,
@@ -363,16 +370,20 @@ class Tacotron(nn.Module):
     def generate(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                  speaker_ids: torch.Tensor | None = None,
                  max_iters: int | None = None,
-                 generator: torch.Generator | None = None) -> TacotronOutput:
+                 generator: torch.Generator | None = None,
+                 speaker_embed: torch.Tensor | None = None) -> TacotronOutput:
         """Encoder → decode of ``max_iters`` steps (prenet dropout on, its
         masks drawn up front from ``generator``, one [steps, B, width] draw
-        per prenet layer in order) → post-net.
+        per prenet layer in order) → post-net.  ``speaker_embed`` [B, E]
+        stands in for the table lookup of ``speaker_ids`` (the sharded
+        table's gather, training.sharded_speaker_embed).
 
         The fused decoder loop runs iff attention is Bahdanau, the prenet
-        has two layers and ``parallel.use_pallas_decode`` is set; otherwise
-        the per-step decode runs :meth:`DecoderCell.step` once per step (the
-        JAX package's scan).  Both draw the same masks from the same
-        generator."""
+        has two layers, ``parallel.use_pallas_decode`` is set and the decode
+        is not sequence-sharded; otherwise the per-step decode runs
+        :meth:`DecoderCell.step` once per step (the JAX package's scan).
+        Both draw the same masks from the same generator.  Under
+        ``seq_mesh`` the alignments are this rank's slice [B, steps, L/M]."""
         m = self.cfg.model
         B, L = inputs.shape
         r, M = m.outputs_per_step, self.cfg.audio.num_mels
@@ -380,11 +391,19 @@ class Tacotron(nn.Module):
         dev = inputs.device
 
         with self._running_statistics():
-            spk = self._speaker_embed(speaker_ids)
+            spk = (speaker_embed.to(self.dtype) if speaker_embed is not None
+                   else self._speaker_embed(speaker_ids))
             memory = self.encoder(inputs, input_lengths, spk, generator).contiguous()
             keys = self.attention.precompute_keys(memory).contiguous()
         mask = (torch.arange(L, device=dev)[None, :]
                 < input_lengths.to(dev)[:, None]).contiguous()
+        if self.seq_mesh is not None:
+            # this rank's slice of the encoder length (the JAX tacotron.py:473-483)
+            n, j = self.seq_mesh.model, self.seq_mesh.model_index
+            if L % n:
+                raise ValueError(f"input length {L} not divisible by model axis {n}")
+            sl = slice(j * (L // n), (j + 1) * (L // n))
+            memory, keys, mask = (t[:, sl].contiguous() for t in (memory, keys, mask))
         attn_h0, dec_h0 = self._init_carry(B, spk, dev)
 
         keep = 1.0 - m.prenet_dropout
@@ -392,8 +411,8 @@ class Tacotron(nn.Module):
         if keep < 1.0:
             masks = [(torch.rand((n_steps, B, n), generator=generator, device=dev)
                       < keep).float() / keep for n in m.prenet_depths]
-        fused = (m.attention_type == "bahdanau" and len(m.prenet_depths) == 2
-                 and self.cfg.parallel.use_pallas_decode)
+        fused = (self.seq_mesh is None and m.attention_type == "bahdanau"
+                 and len(m.prenet_depths) == 2 and self.cfg.parallel.use_pallas_decode)
         if fused:
             if masks is None:
                 masks = [torch.ones((n_steps, B, n), device=dev) for n in m.prenet_depths]

@@ -1,7 +1,7 @@
-"""One additive-attention step: CUDA kernel and its plain PyTorch version.
+"""One additive-attention step: CUDA kernels and their plain PyTorch versions.
 
 Port of ``tacotron_multispeaker_tpu/ops/attention_step.py``
-``attention_step_pallas``, with its rounding (``:26-49``): in the compute
+``attention_step_pallas`` (:func:`attention_step`), with its rounding (``:26-49``): in the compute
 dtype of ``keys``, ``act = tanh((keys + q) + location_term)`` (each add and
 the tanh rounded to that dtype); energies ``e = Σ_a act·v`` summed in f32;
 the masked softmax in f32 (−1e9 at masked positions, ``exp(e − max)·mask``,
@@ -12,8 +12,16 @@ keys [B, L, A], q [B, A], v [A], memory [B, L, D] all in the compute dtype
 (bf16 or f32), mask [B, L] bool, optional location_term [B, L, A] (compute
 dtype) → (context [B, D] f32, alignments [B, L] f32).
 
-:func:`attention_step` runs the plain version for CPU tensors and the CUDA
-kernel (``csrc/attention_step.cu``) for CUDA tensors; anything else raises.
+:func:`attention_step_partial` ports ``attention_step_partial``, the
+per-shard half of the sequence-sharded distributed softmax
+(ops/sharded_attention.py): the same energies without a location term, and
+no normalisation → (ctx_u [B, D], p_u [B, L], m [B, 1], s [B, 1]), all f32:
+``p_u = exp(e − m)·mask`` with m the local max of the masked energies (−1e9
+for a fully masked shard), s = Σ p_u, ``ctx_u = p_u @ memory`` with p_u
+rounded to memory's dtype.
+
+Both run their plain version for CPU tensors and their CUDA kernel
+(``csrc/attention_step.cu``) for CUDA tensors; anything else raises.
 """
 
 from __future__ import annotations
@@ -24,8 +32,9 @@ import torch
 
 from . import cuda_build
 
-# launches of the CUDA kernel (the plain version does not count)
-launches = 0
+# launches of the CUDA kernels (the plain versions do not count)
+launches = 0            # attention_step
+partial_launches = 0    # attention_step_partial
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 _INT_MAX = 2**31 - 1
@@ -71,19 +80,34 @@ def _check(keys, q, v, memory, mask, loc):
     return B, L, A, D
 
 
+def attention_step_partial_reference(keys, q, v, memory, mask):
+    """Plain version of the per-shard partial with the kernel's rounding."""
+    e = (torch.tanh(keys + q[:, None, :]).float() * v.float()).sum(dim=-1)   # [B, L]
+    e = torch.where(mask, e, torch.full_like(e, -1e9))
+    m = e.max(dim=-1, keepdim=True).values
+    p = torch.exp(e - m) * mask.float()
+    s = p.sum(dim=-1, keepdim=True)
+    ctx = torch.bmm(p.to(memory.dtype).float()[:, None, :], memory.float())[:, 0]
+    return ctx, p, m, s
+
+
+def _check_kernel_limits(name, B, L, A, D, device):
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {device}")
+    smem = 4 * (2 * A + L)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name} kernel: A={A}, L={L} need {smem} bytes of "
+                         f"shared memory (> {_SMEM_LIMIT})")
+    if B * L * max(A, D) > _INT_MAX:
+        raise ValueError(f"{name} kernel: B*L*max(A, D) must stay below 2^31")
+
+
 def attention_step(keys, q, v, memory, mask, location_term=None):
     """(context [B, D] f32, alignments [B, L] f32); see the module docstring."""
     B, L, A, D = _check(keys, q, v, memory, mask, location_term)
     if keys.device.type == "cpu":
         return attention_step_reference(keys, q, v, memory, mask, location_term)
-    if keys.device.type != "cuda":
-        raise ValueError(f"attention_step runs on cpu or cuda, not {keys.device}")
-    smem = 4 * (2 * A + L)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"attention_step kernel: A={A}, L={L} need {smem} bytes of "
-                         f"shared memory (> {_SMEM_LIMIT})")
-    if B * L * max(A, D) > _INT_MAX:
-        raise ValueError("attention_step kernel: B*L*max(A, D) must stay below 2^31")
+    _check_kernel_limits("attention_step", B, L, A, D, keys.device)
     tensors = [t.contiguous() for t in (keys, q, v, memory, mask)]
     loc = None if location_term is None else location_term.contiguous()
     ctx = torch.empty((B, D), dtype=torch.float32, device=keys.device)
@@ -103,11 +127,43 @@ def attention_step(keys, q, v, memory, mask, location_term=None):
     return ctx, align
 
 
+def attention_step_partial(keys, q, v, memory, mask):
+    """(ctx_u [B, D], p_u [B, L], m [B, 1], s [B, 1]), all f32; see the
+    module docstring.  L = 0 is a fully masked shard."""
+    B, L, A, D = _check(keys, q, v, memory, mask, None)
+    if L == 0:
+        f32 = dict(dtype=torch.float32, device=keys.device)
+        return (torch.zeros((B, D), **f32), torch.zeros((B, 0), **f32),
+                torch.full((B, 1), -1e9, **f32), torch.zeros((B, 1), **f32))
+    if keys.device.type == "cpu":
+        return attention_step_partial_reference(keys, q, v, memory, mask)
+    _check_kernel_limits("attention_step_partial", B, L, A, D, keys.device)
+    tensors = [t.contiguous() for t in (keys, q, v, memory, mask)]
+    f32 = dict(dtype=torch.float32, device=keys.device)
+    ctx, p = torch.empty((B, D), **f32), torch.empty((B, L), **f32)
+    m, s = torch.empty((B, 1), **f32), torch.empty((B, 1), **f32)
+    if B == 0:
+        return ctx, p, m, s
+    lib = _lib()
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.attention_step_partial_launch(
+            *(t.data_ptr() for t in tensors), ctx.data_ptr(), p.data_ptr(), m.data_ptr(),
+            s.data_ptr(), B, L, A, D, int(keys.dtype == torch.bfloat16), stream)
+    cuda_build.check(err, "attention_step_partial kernel launch")
+    global partial_launches
+    partial_launches += 1
+    return ctx, p, m, s
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("attention_step")
     if not getattr(lib, "_typed", False):
         lib.attention_step_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                                               + [ctypes.c_void_p])
         lib.attention_step_launch.restype = ctypes.c_int
+        lib.attention_step_partial_launch.argtypes = ([ctypes.c_void_p] * 9
+                                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.attention_step_partial_launch.restype = ctypes.c_int
         lib._typed = True
     return lib

@@ -1,0 +1,56 @@
+"""Run a function on N ranks of one host: ``torch.multiprocessing`` spawns
+the processes, which join one process group over a ``file://`` store in a
+temporary directory.  Used by the tests (gloo ranks on the CPU) and by
+``chip_smoke.py`` (ranks sharing one card)."""
+
+from __future__ import annotations
+
+import os
+import tempfile
+import time
+
+import torch
+import torch.multiprocessing as mp
+
+from . import distributed
+
+
+def _rank_main(rank, fn, world_size, store_dir, device, timeout):
+    args = torch.load(os.path.join(store_dir, "args.pt"), weights_only=False)
+    distributed.initialize_distributed(
+        init_method=f"file://{os.path.join(store_dir, 'store')}", world_size=world_size,
+        rank=rank, local_rank=rank, device=device, timeout=timeout)
+    try:
+        out = fn(rank, *args)
+        torch.save(out, os.path.join(store_dir, f"rank{rank}.pt"))
+    finally:
+        distributed.destroy()
+
+
+def run_ranks(fn, world_size: int, *args, device=None, timeout: float = 600.0) -> list:
+    """``fn(rank, *args)`` on ``world_size`` spawned ranks (``fn`` and
+    ``args`` picklable; ``device`` as :func:`distributed.initialize_distributed`
+    takes it); returns each rank's return value (saved with ``torch.save``),
+    in rank order.  A rank that raises fails the call with its traceback; a
+    run past ``timeout`` seconds kills every rank and raises
+    ``TimeoutError``.  No process outlives the call."""
+    with tempfile.TemporaryDirectory() as store_dir:
+        # the arguments go through a file: a spawned child reads its pipe only
+        # after its imports, so large pickled arguments would start the ranks
+        # one after another
+        torch.save(args, os.path.join(store_dir, "args.pt"))
+        ctx = mp.start_processes(
+            _rank_main, args=(fn, world_size, store_dir, device, timeout),
+            nprocs=world_size, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=0.5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{world_size} ranks still running after {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [torch.load(os.path.join(store_dir, f"rank{r}.pt"), weights_only=False)
+                for r in range(world_size)]

@@ -9,6 +9,10 @@ banks, the per-step attention and Griffin-Lim through their kernels, as it
 does in the JAX package.  Requests pad to the smallest
 input bucket that fits, as in the JAX package.
 
+``make_sharded_synth`` is pod-scale batch synthesis over a (data, model)
+mesh of ranks (parallel/), one process per mesh position: each rank
+decodes its shard of a global batch and every rank gets the global result.
+
 Checkpoints: ``load_variables`` takes a flax ``{"params", "batch_stats"}``
 tree of numpy arrays (convert.py); ``save``/``load`` use the port's own
 ``state_dict`` file.  Restoring an orbax checkpoint directory stands in
@@ -16,6 +20,8 @@ ROADMAP.md.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -27,19 +33,31 @@ from .config import Config
 from .data.feeder import pad_axis
 from .device import resolve_device
 from .models import create_model
+from .parallel.distributed import all_gather
+from .parallel.mesh import keep_shards, param_shards
 from .text import text_to_sequence
+from .training import _fold_generator, _shard_table, sharded_speaker_embed
 
 
 class Synthesizer:
     """``device=None`` means the CUDA device (and raises without one);
     ``device="cpu"`` runs the plain PyTorch path.  Weights start random,
-    drawn with flax's initialisers from ``seed``."""
+    drawn with flax's initialisers from ``seed``.
 
-    def __init__(self, cfg: Config, device=None, seed: int = 0):
+    ``mesh`` (parallel.make_mesh): this Synthesizer is one rank of the mesh,
+    on the mesh's device, and keeps only its part of the parameters that
+    shard (``param_shards``: the speaker table's rows over ``model``), so it
+    serves ``make_sharded_synth`` and not the single-card calls."""
+
+    def __init__(self, cfg: Config, device=None, seed: int = 0, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.shards = param_shards(cfg, mesh) if mesh is not None else {}
         gen = torch.Generator().manual_seed(seed)
-        model = create_model("tacotron", cfg).reset_parameters(gen)
+        model = keep_shards(create_model("tacotron", cfg).reset_parameters(gen), self.shards)
         self.model = model.to(self.device).eval()
         self.ap = AudioProcessor(cfg.audio, self.device)
 
@@ -48,7 +66,7 @@ class Synthesizer:
     def load_variables(self, variables) -> "Synthesizer":
         """Weights from a flax ``{"params", "batch_stats"}`` tree (nested
         dicts of numpy arrays)."""
-        state = convert.flax_to_state_dict(variables, self.model)
+        state = convert.flax_to_state_dict(variables, self.model, self.shards)
         self.model.load_state_dict(
             {k: v.to(self.device) for k, v in state.items()}, strict=True)
         return self
@@ -71,6 +89,9 @@ class Synthesizer:
 
         ``seed`` seeds the prenet dropout masks and the Griffin-Lim initial
         phases; ``gl_angles`` ([B, frames, bins]) replaces the latter."""
+        if self.shards:
+            raise ValueError("this Synthesizer keeps only its rows of the speaker table "
+                             "(mesh=): serve through make_sharded_synth")
         cfg = self.cfg
         seqs = [np.asarray(text_to_sequence(t, cfg.cleaners), np.int64)
                 for t in texts]
@@ -86,24 +107,134 @@ class Synthesizer:
                                else [0] * len(texts), dtype=torch.long, device=dev)
         iters = max_iters or self._iters_for(int(lengths.max()))
         gen = torch.Generator(device=dev).manual_seed(seed)
-        with torch.inference_mode():
-            out = self.model.generate(
-                inputs, lengths, sids if cfg.model.num_speakers > 1 else None,
-                max_iters=iters, generator=gen)
-            spec = out.linear_outputs.transpose(1, 2)             # [B, bins, T]
-            wavs = dsp.inv_linear_spectrogram(
-                spec, self.ap.params, preemph=cfg.audio.preemphasis,
-                ref_level_db=cfg.audio.ref_level_db,
-                min_level_db=cfg.audio.min_level_db, power=cfg.audio.power,
-                gl_iters=cfg.audio.griffin_lim_iters, generator=gen,
-                gl_method=cfg.audio.gl_method, gl_momentum=cfg.audio.gl_momentum,
-                use_pallas=cfg.parallel.use_pallas,
-                angles=None if gl_angles is None else torch.as_tensor(
-                    np.array(gl_angles, np.float32), device=dev))
-            wavs = wavs.cpu().numpy()
-            aligns = out.alignments.cpu().numpy()
+        angles = None if gl_angles is None else torch.as_tensor(
+            np.array(gl_angles, np.float32), device=dev)
+        wavs, aligns, _ = self._make_fn(iters)(inputs, lengths, sids, gen, angles)
+        wavs, aligns = wavs.cpu().numpy(), aligns.cpu().numpy()
         trimmed = [w[: self.ap.find_endpoint(w)] for w in wavs]
         return trimmed, aligns
+
+    # -- the decode+vocode function -------------------------------------------
+
+    def _make_fn(self, max_iters: int, model=None, speaker_embed_fn=None, cfg=None):
+        """``fn(inputs, lengths, speaker_ids, generator, gl_angles) -> (wav
+        [B, samples], alignments [B, steps, L], mel [B, T, M])``: generate,
+        post-net and Griffin-Lim.  ``speaker_embed_fn(speaker_ids) -> [B, E]``
+        replaces the model's table lookup (the sharded table's gather);
+        ``model`` and ``cfg`` override the Synthesizer's for the mesh-routed
+        builds."""
+        cfg = cfg or self.cfg
+        model = model or self.model
+        audio = cfg.audio
+
+        def fn(inputs, lengths, speaker_ids, generator, gl_angles=None):
+            with torch.inference_mode():
+                if speaker_embed_fn is not None:
+                    spk = dict(speaker_embed=speaker_embed_fn(speaker_ids))
+                else:
+                    spk = dict(speaker_ids=speaker_ids if cfg.model.num_speakers > 1 else None)
+                out = model.generate(inputs, lengths, **spk, max_iters=max_iters,
+                                     generator=generator)
+                spec = out.linear_outputs.transpose(1, 2)             # [B, bins, T]
+                wav = dsp.inv_linear_spectrogram(
+                    spec, self.ap.params, preemph=audio.preemphasis,
+                    ref_level_db=audio.ref_level_db, min_level_db=audio.min_level_db,
+                    power=audio.power, gl_iters=audio.griffin_lim_iters, generator=generator,
+                    gl_method=audio.gl_method, gl_momentum=audio.gl_momentum,
+                    use_pallas=cfg.parallel.use_pallas, angles=gl_angles)
+            return wav, out.alignments, out.mel_outputs
+
+        return fn
+
+    def make_sharded_synth(self, mesh, batch: int, length: int,
+                           max_iters: int | None = None):
+        """Pod-scale batch synthesis (BASELINE.json config 5) over a (data,
+        model) mesh of ranks: port of the JAX ``make_sharded_synth``.
+
+        Every rank calls it, on a Synthesizer built for ``mesh``, and then
+        calls the returned ``fn(inputs, lengths, speaker_ids, seed=0,
+        gl_angles=None) -> (wav, alignments, mel)`` with the global batch
+        (inputs [batch, length]; ``gl_angles`` the global Griffin-Lim initial
+        phases [batch, frames, bins]); each rank decodes its shard, and every
+        rank gets the global result back (tensors on its device).  Three
+        branches, as in the JAX package:
+
+        * pure data parallelism (a model axis of 1): each rank runs the
+          single-card path (fused decoder loop and all) on its batch shard;
+        * hybrid (``parallel.hybrid_model_axis`` and a batch that divides by
+          the mesh size): the batch shards over data × model, and the
+          speaker vectors come from the row-sharded table
+          (``sharded_speaker_embed``);
+        * sequence-sharded (otherwise): the batch shards over ``data`` and
+          the encoder length over ``model``; the decode runs per step with
+          the distributed-softmax attention (kernel 10), the kernels of
+          ``use_pallas``, ``use_pallas_decode`` and ``use_pallas_gru`` off.
+
+        Prenet dropout and the drawn Griffin-Lim phases are seeded per batch
+        shard from (seed, shard index): the data index (the ranks of one
+        mesh row draw alike in the sequence-sharded branch), or the rank in
+        the hybrid branch.  ``batch`` must divide by the data axis and, with
+        a model axis above 1, ``length`` by the model axis."""
+        if mesh is not self.mesh:
+            raise ValueError("make_sharded_synth needs the Synthesizer built for this "
+                             "mesh: Synthesizer(cfg, mesh=mesh)")
+        cfg = self.cfg
+        iters = max_iters or cfg.model.max_iters
+        n_data, n_model = mesh.data, mesh.model
+        if batch % n_data != 0:
+            raise ValueError(f"batch {batch} not divisible by data axis {n_data}")
+        if n_model > 1 and length % n_model != 0:
+            raise ValueError(f"padded length {length} not divisible by model axis {n_model}")
+        shard_table = _shard_table(cfg)
+        rows = self.shards.get("speaker_table.weight")
+        seq = False
+        if n_model == 1:
+            # pure data parallelism: no collectives in the decode
+            run = self._make_fn(iters)
+            part, index, group = n_data, mesh.data_index, mesh.data_group
+        elif (cfg.parallel.hybrid_model_axis
+              and (not shard_table or cfg.model.num_speakers % n_model == 0)
+              and batch % mesh.size == 0):
+            embed = None
+            if shard_table:
+                embed = lambda sids: sharded_speaker_embed(
+                    self.model.speaker_table.weight, rows.start, sids, mesh)
+            run = self._make_fn(iters, speaker_embed_fn=embed)
+            part, index, group = mesh.size, mesh.rank, mesh.world_group
+        else:
+            seq_cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+                cfg.parallel, use_pallas=False, use_pallas_decode=False,
+                use_pallas_gru=False))
+            model = keep_shards(create_model("tacotron", seq_cfg, seq_mesh=mesh), self.shards)
+            model.load_state_dict(self.model.state_dict(), assign=True)   # shares tensors
+            model.to(self.device).eval()
+            embed = None
+            if shard_table:
+                embed = lambda sids: sharded_speaker_embed(
+                    model.speaker_table.weight, rows.start, sids, mesh, batch_sharded=False)
+            run = self._make_fn(iters, model=model, speaker_embed_fn=embed, cfg=seq_cfg)
+            part, index, group, seq = n_data, mesh.data_index, mesh.data_group, True
+        b_local = batch // part
+        dev = self.device
+
+        def fn(inputs, lengths, speaker_ids, seed: int = 0, gl_angles=None):
+            inputs = torch.as_tensor(inputs, device=dev).long()
+            if tuple(inputs.shape) != (batch, length):
+                raise ValueError(f"inputs {tuple(inputs.shape)}, built for {(batch, length)}")
+            mine = slice(index * b_local, (index + 1) * b_local)
+            lengths = torch.as_tensor(lengths, device=dev).long()[mine]
+            sids = (None if speaker_ids is None
+                    else torch.as_tensor(speaker_ids, device=dev).long()[mine])
+            angles = None if gl_angles is None else torch.as_tensor(
+                gl_angles[mine], dtype=torch.float32, device=dev)
+            gen = _fold_generator(seed, index, dev)
+            wav, align, mel = run(inputs[mine], lengths, sids, gen, angles)
+            with torch.inference_mode():
+                if seq:                       # alignments: this rank's slice of L
+                    align = all_gather(align, 2, mesh.model_group)
+                return tuple(all_gather(t, 0, group) for t in (wav, align, mel))
+
+        return fn
 
     def _serve_bucket(self, length: int) -> int:
         """Smallest input bucket that fits ``length``."""

@@ -13,6 +13,8 @@ and a step updates them in place.  Prenet dropout draws from a
 ``torch.Generator`` seeded from (seed, step), as the JAX step folds the step
 into its key.  The data-parallel and hybrid steps, ``train.targets_from_wav``
 and ``train.adam_mu_dtype=bfloat16`` are not ported yet (ROADMAP.md).
+:func:`sharded_speaker_embed` (the lookup from a row-sharded speaker table)
+serves the sharded synthesis of synthesizer.py.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from .config import Config
 from .device import resolve_device
 from .models import Tacotron, create_model, tacotron_loss
+from .parallel.distributed import all_gather, all_reduce
 
 
 def learning_rate_schedule(cfg: Config):
@@ -104,9 +107,11 @@ def create_train_state(cfg: Config, seed: int = 0, device=None) -> tuple[Tacotro
                              optimizer=make_optimizer(cfg, model.parameters()), seed=seed)
 
 
-def _step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+def _fold_generator(seed: int, index: int, device: torch.device) -> torch.Generator:
+    """A generator of its own for (seed, index): a train step, or a batch
+    shard of the sharded synthesis (``jax.random.fold_in``'s part)."""
     return torch.Generator(device=device).manual_seed(
-        (seed * 1_000_003 + step) % (2 ** 63 - 1))
+        (seed * 1_000_003 + index) % (2 ** 63 - 1))
 
 
 def make_train_step(cfg: Config, model: Tacotron):
@@ -130,7 +135,7 @@ def make_train_step(cfg: Config, model: Tacotron):
             p.grad = None
         out = model(inputs, input_lengths, mel_targets,
                     speaker_ids if n_speakers > 1 else None,
-                    generator=_step_generator(state.seed, state.step, dev))
+                    generator=_fold_generator(state.seed, state.step, dev))
         losses = tacotron_loss(
             out.mel_outputs, out.linear_outputs, mel_targets, linear_targets,
             target_lengths if tr.loss_masking else None, num_freq=cfg.audio.num_freq,
@@ -144,3 +149,39 @@ def make_train_step(cfg: Config, model: Tacotron):
         return state, metrics
 
     return train_step
+
+
+def sharded_speaker_embed(table: torch.Tensor, first_row: int, speaker_ids: torch.Tensor,
+                          mesh, batch_sharded: bool = True) -> torch.Tensor:
+    """[B_local] ids → [B_local, E] speaker vectors from a table whose rows
+    shard over the mesh's ``model`` axis: this rank holds ``table``, rows
+    ``first_row …`` of the full table (mesh.param_shards).
+
+    ``batch_sharded`` (the hybrid decode, where the ranks of a mesh row hold
+    different batch rows): the ids are all-gathered over ``model``, each
+    rank gathers the ids that fall in its rows (zeros elsewhere), a SUM over
+    ``model`` assembles every vector, and the rank keeps its own
+    ``B_local`` segment.  Otherwise (the sequence-sharded decode, ids the
+    same across the row) only the masked gather and the SUM run.  Port of
+    ``training.py sharded_speaker_embed``; inference only."""
+    group = mesh.model_group
+    b_local = speaker_ids.shape[0]
+    ids = all_gather(speaker_ids, 0, group) if batch_sharded else speaker_ids
+    rel = ids - first_row
+    s_local = table.shape[0]
+    if s_local:
+        ok = (rel >= 0) & (rel < s_local)
+        emb = torch.where(ok[:, None], table[rel.clamp(0, s_local - 1)], 0.0)
+    else:                                   # an empty last shard (S < M·ceil(S/M))
+        emb = table.new_zeros((ids.shape[0], table.shape[1]))
+    emb = all_reduce(emb, "sum", group)
+    if batch_sharded:
+        j = mesh.model_index
+        emb = emb[j * b_local:(j + 1) * b_local]
+    return emb
+
+
+def _shard_table(cfg: Config) -> bool:
+    return (cfg.model.num_speakers > 1
+            and cfg.parallel.model_parallel_size > 1
+            and cfg.model.num_speakers >= cfg.parallel.shard_speaker_table_min)

@@ -27,6 +27,7 @@ from tacotron_multispeaker_torch.ops import overlap_add as tola
 from tacotron_multispeaker_torch.ops import gru_scan as tgs
 from tacotron_multispeaker_torch.ops import teacher_decoder as ttd
 from tacotron_multispeaker_torch.ops import wgrad as twg
+from tacotron_multispeaker_torch.parallel import make_mesh, run_ranks
 from tacotron_multispeaker_torch.synthesizer import Synthesizer
 
 
@@ -525,3 +526,96 @@ def test_synthesizer_with_use_pallas_on_card(cuda, overrides, launches):
             np.testing.assert_allclose(x, y, atol=1e-3 * np.abs(y).max())
         else:
             assert abs(np.square(x).sum() / np.square(y).sum() - 1.0) <= 0.05
+
+
+def partial_case(rs, B, L, A, D, ended=(1, 3)):
+    """keys, q, v, memory, mask of ``attention_step_partial`` as numpy: one
+    L-shard of a longer text; the rows in ``ended`` end in an earlier shard
+    (fully masked here), the others end at random inside it or past it."""
+    lengths = rs.randint(1, 2 * L, B)
+    lengths[list(ended)] = 0
+    f = lambda *s, sc=1.0: (rs.randn(*s) * sc).astype(np.float32)
+    return (f(B, L, A, sc=0.5), f(B, A, sc=0.5), f(A, sc=A ** -0.5), f(B, L, D),
+            np.arange(L)[None, :] < lengths[:, None])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [
+    # f32: the same arithmetic in another sum order (s sums 48 weights, ctx
+    # 48 weighted rows of |memory| ~ 3)
+    (torch.float32, {"ctx": 1e-4, "p": 1e-5, "m": 1e-5, "s": 1e-4}),
+    # bf16: both sides round act after the add and after tanh; CUDA's tanhf
+    # and torch's tanh may differ by an f32 ulp at a bf16 rounding boundary,
+    # moving an energy by ~|v_a|·2^-8 (p, m 1e-3; s over 48 weights 1e-2);
+    # the context then rounds that weight to bf16 (2^-8 · |memory| ~ 1e-2)
+    (torch.bfloat16, {"ctx": 2e-2, "p": 1e-3, "m": 1e-3, "s": 1e-2})])
+def test_attention_step_partial_kernel_matches_plain_on_card(cuda, dtype, tol):
+    # the full-width shard of the sequence-sharded decode: B=8, L/M = 192/4,
+    # A=256, D=384; rows 1 and 3 fully masked
+    rs = np.random.RandomState(17)
+    args = _card(partial_case(rs, 8, 48, 256, 384), cuda, dtype)
+    args[4] = args[4].bool()
+    before = tas.partial_launches
+    got = tas.attention_step_partial(*args)
+    ref = tas.attention_step_partial_reference(*args)
+    torch.cuda.synchronize()
+    assert tas.partial_launches == before + 1
+    for name, a, b in zip(("ctx", "p", "m", "s"), got, ref):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert (a - b).abs().max().item() <= tol[name], name
+    ctx, p, m, s = got
+    dead = torch.tensor([1, 3], device=cuda)
+    assert torch.all(m[dead] == -1e9) and torch.all(s[dead] == 0)
+    assert torch.all(p[dead] == 0) and torch.all(ctx[dead] == 0)
+    assert torch.all(p[~args[4]] == 0)
+
+
+@pytest.mark.gpu
+def test_attention_step_partial_raises_outside_its_limits_on_card(cuda):
+    rs = np.random.RandomState(18)
+    keys, q, v, mem, mask = _card(partial_case(rs, 1, 60000, 8, 4, ended=()), cuda)
+    before = tas.partial_launches
+    with pytest.raises(ValueError, match="shared memory"):           # (2A + L) * 4 B
+        tas.attention_step_partial(keys, q, v, mem, mask.bool())
+    with pytest.raises(ValueError, match="on cpu"):
+        tas.attention_step_partial(keys[:, :4], q, v, mem[:, :4].cpu(), mask[:, :4].bool())
+    assert tas.partial_launches == before
+
+
+def _card_seq_rank(rank, cfg, B, L, iters, inputs, lengths, sids, angles):
+    mesh = make_mesh(cfg.parallel, data=1, model=2)
+    syn = Synthesizer(cfg, mesh=mesh, seed=4)
+    fn = syn.make_sharded_synth(mesh, B, L, max_iters=iters)
+    counts = (tas.partial_launches, tdl.launches)
+    wav, align, mel = fn(inputs, lengths, sids, gl_angles=angles)
+    torch.cuda.synchronize()
+    return ([t.cpu().numpy() for t in (wav, align, mel)],
+            (tas.partial_launches - counts[0], tdl.launches - counts[1]))
+
+
+@pytest.mark.gpu
+def test_sequence_sharded_synth_on_card_matches_unsharded(cuda):
+    # two gloo ranks sharing the card, (data=1, model=2), f32 tiny model with
+    # a row-sharded 16-speaker table: kernel 10 once a step on each rank and
+    # the fused decoder loop never; the result against the unsharded port on
+    # the card (test_parallel.py's tolerances for the sharded decode)
+    cfg = tconfig.get_config("tiny", "model.prenet_dropout=0.0,model.num_speakers=16,"
+                             "model.speaker_embed_depth=8,parallel.model_parallel_size=2,"
+                             "parallel.shard_speaker_table_min=8,audio.gl_method=dft_f32,"
+                             "parallel.hybrid_model_axis=false")
+    rs = np.random.RandomState(19)
+    B, L, iters = 3, 32, 8
+    inputs, lengths, sids = rs.randint(2, 40, (B, L)), np.array([32, 9, 20]), np.array([1, 9, 15])
+    angles = rs.uniform(-math.pi, math.pi, (B, iters * 5, 513)).astype(np.float32)
+    outs = run_ranks(_card_seq_rank, 2, cfg, B, L, iters, inputs, lengths, sids, angles,
+                     timeout=300)
+    ref = Synthesizer(cfg, device=cuda, seed=4)._make_fn(iters)(
+        torch.as_tensor(inputs, device=cuda), torch.as_tensor(lengths, device=cuda),
+        torch.as_tensor(sids, device=cuda), torch.Generator(device=cuda),
+        torch.as_tensor(angles, device=cuda))
+    wav_r, al_r, mel_r = (t.cpu().numpy() for t in ref)
+    for (wav, al, mel), launches in outs:
+        assert launches == (iters, 0)
+        np.testing.assert_allclose(mel, mel_r, atol=2e-3)
+        np.testing.assert_allclose(al, al_r, atol=1e-4)
+        np.testing.assert_allclose(wav, wav_r, atol=1e-3 * np.abs(wav_r).max())
