@@ -11,7 +11,7 @@ Phases (no failure is caught; any exception exits non-zero):
    with nvcc (in parallel) and prints the build seconds and ptxas register,
    shared memory and spill lines.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   serving, training and sharded paths' shapes, in float32 and bfloat16, every
+   serving, training, one-direction GRU and sharded paths' shapes, in float32 and bfloat16, every
    output by name, and times kernel, plain version and, where one PyTorch
    call computes the same function, that call (``library_ms``).
 4. Checks ``generate`` at full-width ``multispeaker_vctk``, dropout off: in
@@ -37,7 +37,14 @@ Phases (no failure is caught; any exception exits non-zero):
    statistics); a few bf16 steps with the kernels against the same run
    with their plain versions swapped in; then five timed steps at full
    width (B=32, L=192, T=1000, bf16) with the launches of every kernel
-   checked per step.
+   checked per step.  The ``gru`` path: ``GRU(use_pallas=True)`` (the
+   one-direction scan, kernels 1 and 2) at full CBHG width, forward and
+   backward, both directions, against its plain versions, launches exact.
+   The ``train_loop`` path: a synthetic corpus written by the port's
+   ``make_corpus`` and featurised by its ``preprocess`` on the card, then
+   ``train_loop.train`` at full-width ``multispeaker_vctk`` (B=32): 12
+   steps with a checkpoint and eval at step 10, a resume to 14, a timed
+   and profiled window, and one ``python -m tacotron_multispeaker_torch.train``.
 8. Sharded synthesis (``Synthesizer.make_sharded_synth``): four ranks
    spawned on the one card (gloo over a ``file://`` store).  An f32
    ``shard_seq`` decode of 20 steps against the single-process unsharded
@@ -48,7 +55,8 @@ Phases (no failure is caught; any exception exits non-zero):
    sharded decode with kernel 10), each rank's launches checked per
    request, request ms and audio-s/s, a profile on rank 0.
 
-Each path (three serving paths, training, three sharded paths) is driven
+Each path (three serving paths, training, ``gru``, ``train_loop``, three
+sharded paths) is driven
 with every launch count set to 0 just before it and read just after (on
 each rank for the sharded paths).  Prints the per-request
 and per-step times, one ``kernels`` JSON line (each kernel's time, plain
@@ -111,6 +119,8 @@ def _counters():
     return {"bigru_scan": (gru_scan, "launches"),
             "decoder_loop": (decoder_loop, "launches"),
             "bigru_scan_bwd": (gru_scan, "bwd_launches"),
+            "gru_scan": (gru_scan, "gru_launches"),
+            "gru_scan_bwd": (gru_scan, "gru_bwd_launches"),
             "teacher_decoder_fwd": (teacher_decoder, "fwd_launches"),
             "dkeys": (teacher_decoder, "dkeys_launches"),
             "teacher_decoder_bwd": (teacher_decoder, "bwd_launches"),
@@ -214,6 +224,164 @@ def phase_bigru():
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": f"T={T} B={B} F={F} bf16"}
+
+
+def _gru_inputs(T, B, F, dtype, seed):
+    """xg, xc, whg, whc, h0 of the one-direction scan (time-major [T, B, .])."""
+    return tuple((a[:, 0] if a.dim() == 4 else a[0]).contiguous()
+                 for a in _bigru_inputs(T, B, F, dtype, seed))
+
+
+def phase_gru_scan():
+    """Kernel 1 (the one-direction launcher of csrc/bigru_scan.cu) against
+    gru_scan_reference in f32 and bf16, then timed at the full CBHG width
+    of one direction: T=1000, B=32, F=128, bf16."""
+    import torch
+    from tacotron_multispeaker_torch.ops import gru_scan
+    F, B = 128, 32
+    tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}     # as bigru_scan's
+    worst = 0.0
+    for T in (192, 1000):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _gru_inputs(T, B, F, dtype, seed=T + 2)
+            ys = gru_scan.gru_scan(*args)
+            ref = gru_scan.gru_scan_reference(*args)
+            torch.cuda.synchronize()
+            err = (ys.float() - ref.float()).abs().max().item()
+            log(f"[gru_scan] T={T} B={B} F={F} {str(dtype)[6:]}: max|kernel-plain| "
+                f"{err:.3e} (tol {tol[dtype]:.0e})")
+            if not err <= tol[dtype]:
+                raise AssertionError(f"gru_scan disagrees with its plain version: {err}")
+            worst = max(worst, err)
+    T, dtype = 1000, torch.bfloat16
+    args = _gru_inputs(T, B, F, dtype, seed=9)
+    ms = cuda_time_ms(lambda: gru_scan.gru_scan(*args), reps=10)
+    plain_ms = cuda_time_ms(lambda: gru_scan.gru_scan_reference(*args), reps=2)
+    bi_ms = cuda_time_ms(lambda: gru_scan.bigru_scan(*_bigru_inputs(T, B, F, dtype, 9)),
+                         reps=10)
+    bytes_ = _nbytes(*args) + T * B * F * 2
+    bound_ms, bound_by = _bound_ms(bytes_, bf16_flops=T * B * 2 * 3 * F * F)
+    log(f"[gru_scan] T={T} B={B} F={F} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}); both directions (bigru_scan) "
+        f"{bi_ms:.3f} ms in the same call")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": f"T={T} B={B} F={F} bf16"}
+
+
+def phase_gru_scan_bwd():
+    """Kernel 2 (the one-direction launcher of csrc/bigru_scan_bwd.cu) with
+    its two weight-gradient sums (one wgrad launch) against
+    gru_scan_bwd_reference in f32 and bf16; timed at T=1000, B=32, F=128,
+    bf16.  Returns (the kernel's record, the wgrad error)."""
+    import torch
+    from tacotron_multispeaker_torch.ops import gru_scan as gs
+    F, B = 128, 32
+    names = ("dxg", "dxc", "dwhg", "dwhc", "dh0")
+    tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}     # as bigru_scan_bwd's
+
+    def case(T, dtype, seed):
+        xg, xc, whg, whc, h0 = _gru_inputs(T, B, F, dtype, seed)
+        ys = gs.gru_scan(xg, xc, whg, whc, h0)
+        hprev = torch.cat([h0[None].to(dtype), ys[:-1]]).contiguous()
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        dys = torch.randn(tuple(ys.shape), generator=g, device="cuda").to(dtype)
+        return xg, xc, hprev, dys, whg, whc
+
+    worst = 0.0
+    for T in (192, 1000):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = case(T, dtype, seed=T + 3)
+            out = gs.gru_scan_bwd(*args)
+            ref = gs.gru_scan_bwd_reference(*args)
+            torch.cuda.synchronize()
+            errs = {n: _rel_err(a, b) for n, a, b in zip(names, out, ref)}
+            log(f"[gru_scan_bwd] T={T} B={B} F={F} {str(dtype)[6:]}: max|kernel-plain|/"
+                f"max|plain| " + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f" (tol {tol[dtype]:.0e})")
+            if not all(e <= tol[dtype] for e in errs.values()):
+                raise AssertionError(f"gru_scan_bwd disagrees with its plain version: {errs}")
+            worst = max(worst, *errs.values())
+    T, dtype = 1000, torch.bfloat16
+    args = case(T, dtype, seed=12)
+    ms = cuda_time_ms(lambda: gs._bwd_kernel(*args), reps=5)
+    plain_ms = cuda_time_ms(lambda: gs.gru_scan_bwd_reference(*args), reps=1)
+    xg, xc, hprev, dys, whg, whc = args
+    dxg, dxc, rh, dh0 = gs._bwd_kernel(*args)
+    bytes_ = _nbytes(xg, xc, hprev, dys, whg, whc, dxg, dxc, rh, dh0)
+    bound_ms, bound_by = _bound_ms(bytes_, bf16_flops=T * B * 12 * F * F)
+    problems = [(hprev, dxg, False), (rh, dxc, False)]
+    w_err = _check_wgrad(problems, f"gru backward, 2 products over {T * B} rows")
+    w_ms, w_plain = _time_wgrad(problems, dtype)
+    log(f"[gru_scan_bwd] T={T} B={B} F={F} bf16: kernel {ms:.3f} ms, plain (with its "
+        f"weight gradients) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); its "
+        f"wgrad launch {w_ms:.3f} ms (plain {w_plain:.3f} ms, bound "
+        f"{_wgrad_bound_ms(problems)[0]:.4f} ms)")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": f"T={T} B={B} F={F} bf16",
+            "wgrad_ms": w_ms, "wgrad_plain_ms": w_plain,
+            "error": "max |kernel - plain| / max |plain| over every output"}, w_err
+
+
+GRU_LAUNCHES = {"gru_scan": 1, "gru_scan_bwd": 1, "wgrad": 1}   # per forward + backward
+
+
+def phase_gru():
+    """The ``gru`` path: ``GRU(use_pallas=True)`` at the full CBHG width
+    (in 128, F=128, B=32, T=1000, ragged lengths) on the card, forward and
+    backward through autograd, both directions, f32 and bf16, against the
+    same module with the plain versions swapped in; each run's launches
+    counted exactly.  Returns the path's launches."""
+    import torch
+    from tacotron_multispeaker_torch.models.modules import GRU
+    B, T, D, F = 32, 1000, 128, 128
+    g = torch.Generator(device="cuda").manual_seed(61)
+    xs = torch.randn(B, T, D, generator=g, device="cuda")
+    lengths = torch.randint(T // 4, T + 1, (B,), generator=g, device="cuda")
+    lengths[0] = T
+    w = torch.randn(B, T, F, generator=g, device="cuda")
+    # relative to max(peak, 1): f32 sum order (the weight gradients sum
+    # T*B rows) -> 1e-4; bf16 flipped roundings carried by the recurrence
+    # and into the input projection's gradient -> 5e-2
+    tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+    err = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp(min=1.0)).item()
+    reset_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(62)
+        module = GRU(D, F, dtype, use_pallas=True)
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * D ** -0.5)
+        module.cuda()
+        for reverse in (False, True):
+            outs = []
+            for plain in (False, True):
+                module.zero_grad()
+                before = read_counts()
+                with plain_kernels() if plain else contextlib.nullcontext():
+                    ys = module(xs, lengths, reverse=reverse)
+                    (ys.float() * w).sum().backward()
+                torch.cuda.synchronize()
+                got = {k: v for k, v in _delta(before).items() if v}
+                want = {} if plain else GRU_LAUNCHES
+                if got != want:
+                    raise AssertionError(f"gru path {str(dtype)[6:]} reverse={reverse} "
+                                         f"plain={plain}: launches {got}, expected {want}")
+                outs.append([ys.detach()] + [p.grad.detach().clone()
+                                             for p in module.parameters()])
+            errs = [err(a, b) for a, b in zip(*outs)]
+            log(f"[gru] GRU(use_pallas=True) B={B} T={T} D={D} F={F} {str(dtype)[6:]} "
+                f"reverse={reverse}, forward + backward, kernels vs plain versions: ys "
+                f"{errs[0]:.3e}, parameter gradients max {max(errs[1:]):.3e} (tol "
+                f"{tol[dtype]:.0e}, relative to max(peak, 1))")
+            if not (torch.isfinite(outs[0][0]).all() and max(errs) <= tol[dtype]):
+                raise AssertionError(f"GRU(use_pallas=True) disagrees with its plain version")
+    total = read_counts()
+    step = lambda: (module(xs, lengths, reverse=True).float() * w).sum().backward()
+    ms = cuda_time_ms(step, reps=5)
+    log(f"[gru] B={B} T={T} bf16 forward + backward: {ms:.3f} ms; launches over the path "
+        f"{json.dumps(total)}")
+    return total
 
 
 def _decoder_case(B, L, n_steps, dtype, scale, seed, M=80, P1=256, P2=128, H=256,
@@ -435,6 +603,8 @@ class plain_kernels:
                       (ast, "attention_step", ast.attention_step_reference),
                       (gs, "bigru_scan", gs.bigru_scan_reference),
                       (gs, "bigru_scan_bwd", gs.bigru_scan_bwd_reference),
+                      (gs, "gru_scan", gs.gru_scan_reference),
+                      (gs, "gru_scan_bwd", gs.gru_scan_bwd_reference),
                       (dl, "decoder_loop", dl.decoder_loop_reference),
                       (td, "teacher_decoder_fwd", td.teacher_decoder_fwd_reference),
                       (td, "teacher_decoder_bwd", td.teacher_decoder_bwd_reference),
@@ -1078,6 +1248,7 @@ def phase_train_bf16():
 
 
 TRAIN_LAUNCHES = {"bigru_scan": 2, "decoder_loop": 0, "bigru_scan_bwd": 2,
+                  "gru_scan": 0, "gru_scan_bwd": 0,
                   "teacher_decoder_fwd": 1, "dkeys": 1, "teacher_decoder_bwd": 1,
                   "wgrad": 3, "conv_bank": 0, "attention_step": 0,
                   "attention_step_partial": 0, "overlap_add": 0, "gl_iteration": 0}
@@ -1131,6 +1302,178 @@ def phase_train():
         f"{steady * 1e3:.2f} ms ({B / steady:.2f} examples/s); launches over the five steps "
         f"{json.dumps(total)}")
     phase_profile([(f"train step B={B} L={L} T={T}", lambda: step(state, *batch))])
+    return total, steady
+
+
+# --------------------------------------------------------------------------
+# phase 7b: the trainer through its own entry points
+# --------------------------------------------------------------------------
+
+LOOP_OVERRIDES = "train.checkpoint_interval=10"
+LOOP_STEPS, LOOP_RESUME, LOOP_TIMED, LOOP_PROFILED = 12, 14, 20, 4
+
+
+def phase_train_loop(bare_step_s):
+    """``train_loop.train`` at full-width ``multispeaker_vctk`` (B=32) on a
+    synthetic corpus (64 utterances, 64 speaker ids, 12-30 words) that the
+    port's ``make_corpus`` writes and its ``preprocess`` featurises on the
+    card: 12 steps with a checkpoint and eval at step 10 (finite losses,
+    checkpoints at 10 and 12, the eval WAV, every launch: 12 steps'
+    ``TRAIN_LAUNCHES`` plus one ``serve`` request's), a resume to step 14,
+    a timed and profiled resume without checkpoints (launches exactly
+    ``TRAIN_LAUNCHES`` a step), the parts of a loop step timed apart (the
+    feeder alone, the copy to the card alone, steps fed from batches made
+    beforehand), and one ``python -m
+    tacotron_multispeaker_torch.train --max_steps 2`` subprocess.  Returns
+    the launches of the 12-step run."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from tacotron_multispeaker_torch import train_loop
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.data import preprocess, synthetic
+    from tacotron_multispeaker_torch.data.feeder import Feeder
+    from tacotron_multispeaker_torch.training import create_train_state, make_train_step
+    from tacotron_multispeaker_torch.utils.checkpoint import CheckpointManager
+
+    cfg = get_config("multispeaker_vctk", LOOP_OVERRIDES)
+    base = tempfile.mkdtemp(prefix="train_loop-")
+    try:
+        t0 = time.perf_counter()
+        raw = synthetic.make_corpus(os.path.join(base, "raw"), n_utts=64, n_speakers=64,
+                                    sample_rate=cfg.audio.sample_rate, seed=5,
+                                    min_words=12, max_words=30)
+        t1 = time.perf_counter()
+        data = os.path.join(base, "training")
+        rows = preprocess.CORPORA["generic"](raw, data, cfg.audio)
+        preprocess.write_metadata(rows, data, cfg.audio)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        plan = Feeder(data, cfg).epoch_plan(0)
+        frames = sorted(r[2] for r in rows)
+        log(f"[train_loop] corpus: 64 utterances, {frames[0]}-{frames[-1]} frames, made in "
+            f"{t1 - t0:.2f} s, featurised on the card in {t2 - t1:.2f} s; epoch 0 batches "
+            f"(L, T): {[(e[3], e[4]) for e in plan]}")
+
+        log_dir = os.path.join(base, "logs")
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train_loop.train(log_dir, data, cfg, max_steps=LOOP_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = read_counts()
+        want = {k: LOOP_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
+        for k, v in path_launches("serve", cfg, cfg.model.max_iters).items():
+            want[k] += v                                 # the eval request at step 10
+        if total != want:
+            raise AssertionError(f"train loop launches {total}, expected {want}")
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            summaries = [json.loads(line) for line in f]
+        ckpts = CheckpointManager(os.path.join(log_dir, "checkpoints")).steps()
+        wav = os.path.join(log_dir, "step-10-audio.wav")
+        rate, pcm = wavfile.read(wav)
+        eval_log = [line.strip() for line in open(os.path.join(log_dir, "train.log"))
+                    if "eval artifact" in line]
+        log(f"[train_loop] multispeaker_vctk B=32, {LOOP_STEPS} steps in {wall:.2f} s "
+            f"(setup included): losses " + ", ".join(f"{r['step']}: {r['loss']:.5f}"
+                                                     for r in summaries)
+            + f"; checkpoints {ckpts}; eval WAV {pcm.shape[0]} samples at {rate} Hz; "
+            f"{eval_log}; launches {json.dumps(total)}")
+        if not (out["step"] == LOOP_STEPS and ckpts == [10, LOOP_STEPS]
+                and [r["step"] for r in summaries] == [1, 2, 3, 4, 5]
+                and all(math.isfinite(r["loss"]) for r in summaries)
+                and math.isfinite(out["loss"])
+                and rate == cfg.audio.sample_rate and pcm.shape[0] > 0
+                and eval_log and "wrote" in eval_log[-1]):
+            raise AssertionError("the train loop's run is wrong (see the line above)")
+
+        out = train_loop.train(log_dir, data, cfg, max_steps=LOOP_RESUME)
+        resumed = [line.strip() for line in open(os.path.join(log_dir, "train.log"))
+                   if "resumed from checkpoint" in line]
+        ckpts = CheckpointManager(os.path.join(log_dir, "checkpoints")).steps()
+        log(f"[train_loop] resume to {LOOP_RESUME}: {resumed}; checkpoints {ckpts}; loss "
+            f"{out['loss']:.5f}")
+        if not (resumed and resumed[-1].endswith(f"step {LOOP_STEPS}")
+                and out["step"] == LOOP_RESUME and ckpts == [10, LOOP_STEPS, LOOP_RESUME]):
+            raise AssertionError("the resume did not continue from step 12")
+
+        # timed: the loop's own cadence (a loss read every 32 steps), no
+        # checkpoint inside the window, the last LOOP_PROFILED steps profiled
+        timed = get_config("multispeaker_vctk", "train.checkpoint_interval=100000")
+        end = LOOP_RESUME + LOOP_TIMED
+        reset_counts()
+        out = train_loop.train(log_dir, data, timed, max_steps=end,
+                               profile_steps=(end - LOOP_PROFILED, end))
+        got = read_counts()
+        want = {k: LOOP_TIMED * v for k, v in TRAIN_LAUNCHES.items()}
+        if got != want:
+            raise AssertionError(f"timed loop launches {got}, expected {want}")
+        steady = [dt for step, dt in out["step_seconds"]
+                  if LOOP_RESUME + 2 < step <= end - LOOP_PROFILED]
+        loop_s = sum(steady) / len(steady)
+        prof = out["profile"]
+        log(f"[train_loop] steps {LOOP_RESUME + 3}-{end - LOOP_PROFILED}: "
+            f"{loop_s * 1e3:.2f} ms a step ({32 / loop_s:.2f} examples/s), phase 7's bare step "
+            f"(B=32 L=192 T=1000) {bare_step_s * 1e3:.2f} ms; profiled steps "
+            f"{prof['steps'][0] + 1}-{prof['steps'][1]} (profiler on): wall "
+            f"{prof['wall_ms']:.2f} ms, device busy {prof['device_busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}, {prof['device_spans']} device spans, top device time "
+            + ", ".join(f"{n} {ms:.2f}" for n, ms in prof["top"]))
+
+        # where the loop's step goes: the feeder's work alone (what the
+        # prefetch thread does a step), the copy to the card alone, and the
+        # step fed in the loop's order from host batches made beforehand
+        feeder = Feeder(data, cfg)
+        t0 = time.perf_counter()
+        host = [feeder.materialize(e) for e in plan * 2]
+        feed_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+        copy_ms = []
+        for hb in host:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_loop.batch_to_device(hb, "cuda")
+            torch.cuda.synchronize()
+            copy_ms.append((time.perf_counter() - t0) * 1e3)
+        model, state = create_train_state(cfg, cfg.train.seed)
+        step_fn = make_train_step(cfg, model)
+        state, m = step_fn(state, *train_loop.batch_to_device(host[0], "cuda"))  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for hb in host:
+            state, m = step_fn(state, *train_loop.batch_to_device(hb, "cuda"))
+        float(m["loss"])
+        fed_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+        del model, state, step_fn
+        log(f"[train_loop] a loop step's parts, over the epoch's batches (T "
+            f"{[e[4] for e in plan]}): Feeder.materialize alone {feed_ms:.2f} ms a batch; the "
+            f"copy to the card alone {sum(copy_ms) / len(copy_ms):.2f} ms a batch (pageable); "
+            f"steps fed from batches made beforehand {fed_ms:.2f} ms a step (copy included); "
+            f"the loop {loop_s * 1e3:.2f} ms a step")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tacotron_multispeaker_torch.train", "--base_dir", base,
+             "--input", "training", "--preset", "multispeaker_vctk", "--name", "cli",
+             "--max_steps", "2", "--hparams", LOOP_OVERRIDES],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli = os.path.join(base, "logs-cli")
+        steps = (CheckpointManager(os.path.join(cli, "checkpoints")).steps()
+                 if os.path.isdir(os.path.join(cli, "checkpoints")) else [])
+        losses = ([json.loads(line)["loss"] for line in open(os.path.join(cli, "metrics.jsonl"))]
+                  if os.path.exists(os.path.join(cli, "metrics.jsonl")) else [])
+        log(f"[train_loop] python -m tacotron_multispeaker_torch.train --max_steps 2: exit "
+            f"{proc.returncode} in {time.perf_counter() - t0:.2f} s, checkpoints {steps}, "
+            f"losses {losses}")
+        if not (proc.returncode == 0 and steps == [2] and len(losses) == 2
+                and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"the train entry point failed:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
     return total
 
 
@@ -1540,8 +1883,8 @@ def phase_profile(runs):
     device-busy time (union of the kernel and copy intervals) against the
     host's wall time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from tacotron_multispeaker_torch.train_loop import device_busy
     for label, fn in runs:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1549,27 +1892,15 @@ def phase_profile(runs):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events() if e.device_type == DeviceType.CUDA)
-        if not spans:
+        busy_ms, n_spans, by_name = device_busy(prof)
+        if busy_ms is None:
             log(f"[profile] {label}: the profiler saw no device time (not measured)")
             continue
-        busy_us, cur_s, cur_e, by_name = 0.0, None, None, {}
-        for s, e, name in spans:
-            tot, n = by_name.get(name, (0.0, 0))
-            by_name[name] = (tot + (e - s), n + 1)
-            if cur_e is None or s > cur_e:
-                busy_us += 0.0 if cur_e is None else cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy_ms = (busy_us + cur_e - cur_s) / 1e3
         log(f"[profile] {label}: wall {wall_ms:.2f} ms (profiler on), "
             f"device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-            f"{len(spans)} device spans")
-        for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
-            log(f"[profile]   {tot / 1e3:9.3f} ms {100 * tot / 1e3 / busy_ms:5.1f}% "
-                f"x{n:<5d} {name[:90]}")
+            f"{n_spans} device spans")
+        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+            log(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{n:<5d} {name[:90]}")
 
 
 KERNEL_META = {
@@ -1580,6 +1911,10 @@ KERNEL_META = {
                      "tacotron_multispeaker_tpu/ops/decoder_loop.py:185", "serve"),
     "bigru_scan_bwd": ("tacotron_multispeaker_torch/csrc/bigru_scan_bwd.cu",
                        "tacotron_multispeaker_tpu/ops/gru_scan.py:485", "train"),
+    "gru_scan": ("tacotron_multispeaker_torch/csrc/bigru_scan.cu",
+                 "tacotron_multispeaker_tpu/ops/gru_scan.py:87", "gru"),
+    "gru_scan_bwd": ("tacotron_multispeaker_torch/csrc/bigru_scan_bwd.cu",
+                     "tacotron_multispeaker_tpu/ops/gru_scan.py:225", "gru"),
     "teacher_decoder_fwd": ("tacotron_multispeaker_torch/csrc/teacher_decoder_fwd.cu",
                             "tacotron_multispeaker_tpu/ops/teacher_decoder.py:190", "train"),
     "dkeys": ("tacotron_multispeaker_torch/csrc/dkeys.cu",
@@ -1604,6 +1939,8 @@ LIBRARY_NULL = {
     "bigru_scan": "torch.nn.GRU applies the reset gate after the matmul, another function",
     "decoder_loop": "no one PyTorch call decodes",
     "bigru_scan_bwd": "no one PyTorch call computes the legacy-GRU backward",
+    "gru_scan": "torch.nn.GRU applies the reset gate after the matmul, another function",
+    "gru_scan_bwd": "no one PyTorch call computes the legacy-GRU backward",
     "teacher_decoder_fwd": "no one PyTorch call runs the attention decoder scan",
     "dkeys": "no one PyTorch call computes this tanh-derivative reduction",
     "teacher_decoder_bwd": "no one PyTorch call runs the decoder scan's backward",
@@ -1631,7 +1968,9 @@ def main() -> int:
     phase_build()
     kern = {"bigru_scan": phase_bigru(), "decoder_loop": phase_decoder()}
     kern["bigru_scan_bwd"], bigru_wgrad_err = phase_bigru_bwd()
-    kern.update(phase_teacher(bigru_wgrad_err))
+    kern["gru_scan"] = phase_gru_scan()
+    kern["gru_scan_bwd"], gru_wgrad_err = phase_gru_scan_bwd()
+    kern.update(phase_teacher(max(bigru_wgrad_err, gru_wgrad_err)))
     kern.update(conv_bank=phase_conv_bank(), attention_step=phase_attention_step(),
                 attention_step_partial=phase_attention_partial(),
                 overlap_add=phase_overlap_add(), gl_iteration=phase_gl_iteration())
@@ -1642,12 +1981,15 @@ def main() -> int:
     launches = {path: phase_serve(path) for path in PATHS}
     phase_train_reference()
     phase_train_bf16()
-    launches["train"] = phase_train()
+    launches["train"], bare_step_s = phase_train()
+    launches["gru"] = phase_gru()
+    launches["train_loop"] = phase_train_loop(bare_step_s)
     launches.update(phase_shard())
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[path][name], "launches_by_path": {
-             p: launches[p][name] for p in (*PATHS, "train", *SHARD_PATHS)},
+             p: launches[p][name] for p in (*PATHS, "train", "gru", "train_loop",
+                                            *SHARD_PATHS)},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name].get("library_ms"),

@@ -1,9 +1,9 @@
-"""Audio API bound to an :class:`AudioConfig` (synthesis side).
+"""Audio API bound to an :class:`AudioConfig`.
 
-Port of ``tacotron_multispeaker_tpu/audio/__init__.py``: ``inv_spectrogram``
-runs Griffin-Lim on the processor's device; WAV encoding and endpointing
-run on the host.  The analysis side (spectrogram, melspectrogram, wav
-loading) belongs to the data slice.
+Port of ``tacotron_multispeaker_tpu/audio/__init__.py``: ``spectrogram``,
+``melspectrogram`` (analysis) and ``inv_spectrogram`` (Griffin-Lim) run on
+the processor's device; WAV reading, encoding and endpointing run on the
+host.
 """
 
 from __future__ import annotations
@@ -29,6 +29,24 @@ class AudioProcessor:
         self.params = STFTParams.from_config(audio_cfg)
         self.device = resolve_device(device)
 
+    def load_wav(self, path: str) -> np.ndarray:
+        """A WAV file at the configured rate → mono float32 in [-1, 1)."""
+        sr, data = wavfile.read(path)
+        if sr != self.cfg.sample_rate:
+            raise ValueError(
+                f"{path}: sample rate {sr} != configured {self.cfg.sample_rate}")
+        if data.dtype == np.int16:
+            data = data.astype(np.float32) / 32768.0
+        elif data.dtype == np.int32:
+            data = data.astype(np.float32) / 2147483648.0
+        elif data.dtype == np.uint8:
+            data = (data.astype(np.float32) - 128.0) / 128.0
+        else:
+            data = data.astype(np.float32)
+        if data.ndim > 1:
+            data = data.mean(axis=1)
+        return data
+
     def save_wav(self, wav: np.ndarray, path_or_buf) -> None:
         wav = np.asarray(wav, dtype=np.float32)
         peak = max(0.01, float(np.abs(wav).max()))
@@ -39,6 +57,24 @@ class AudioProcessor:
         buf = io.BytesIO()
         self.save_wav(wav, buf)
         return buf.getvalue()
+
+    def _analyse(self, y, features) -> np.ndarray:
+        y = torch.as_tensor(np.asarray(y, np.float32), device=self.device)
+        with torch.inference_mode():
+            return features(y).cpu().numpy()
+
+    def spectrogram(self, y) -> np.ndarray:
+        """Waveform [T] -> normalized linear spectrogram [num_freq, frames]."""
+        return self._analyse(y, lambda t: dsp.linear_spectrogram(
+            t, self.params, preemph=self.cfg.preemphasis,
+            ref_level_db=self.cfg.ref_level_db, min_level_db=self.cfg.min_level_db))
+
+    def melspectrogram(self, y) -> np.ndarray:
+        """Waveform [T] -> normalized mel spectrogram [num_mels, frames]."""
+        return self._analyse(y, lambda t: dsp.mel_spectrogram(
+            t, self.params, sample_rate=self.cfg.sample_rate, num_mels=self.cfg.num_mels,
+            preemph=self.cfg.preemphasis, ref_level_db=self.cfg.ref_level_db,
+            min_level_db=self.cfg.min_level_db))
 
     def inv_spectrogram(self, spec, seed: int = 0, angles=None) -> np.ndarray:
         """Normalized linear spectrogram [num_freq, frames] -> waveform."""

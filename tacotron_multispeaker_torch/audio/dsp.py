@@ -1,8 +1,14 @@
-"""Audio DSP for synthesis: dB helpers, inverse preemphasis, Griffin-Lim.
+"""Audio DSP: STFT analysis (spectrogram features), dB helpers, inverse
+preemphasis, Griffin-Lim.
 
-Port of the synthesis half of ``tacotron_multispeaker_tpu/audio/dsp.py``
-(librosa conventions: centered frames, periodic Hann window zero-padded to
-``n_fft``, Slaney mel).  Griffin-Lim runs as DFT matrix products (methods
+Port of ``tacotron_multispeaker_tpu/audio/dsp.py`` (librosa conventions:
+centered frames with reflect padding, periodic Hann window zero-padded to
+``n_fft``, Slaney mel).  The analysis side (``preemphasis``,
+``frame_signal``, ``stft``, ``linear_spectrogram``, ``mel_spectrogram``)
+featurises corpora for training; its FFT is ``torch.fft.rfft``, where the
+JAX package calls ``jnp.fft.rfft``.  ``spectrogram_targets`` (in-graph
+targets for ``train.targets_from_wav``) stands in ROADMAP.md.  Griffin-Lim
+runs as DFT matrix products (methods
 ``dft_{f32,hi,bf16,mix}``) in either layout the JAX package uses:
 
 * full-frame (``win_length == n_fft``, e.g. the ``tiny`` preset): frames
@@ -107,6 +113,11 @@ def mel_basis(sample_rate: int, n_fft: int, num_mels: int,
 # Preemphasis and dB / normalization helpers
 # ----------------------------------------------------------------------------
 
+def preemphasis(x: torch.Tensor, coef: float) -> torch.Tensor:
+    """y[t] = x[t] - coef * x[t-1] (reference: lfilter([1, -coef], [1], x))."""
+    return torch.cat([x[..., :1], x[..., 1:] - coef * x[..., :-1]], dim=-1)
+
+
 def inv_preemphasis(y: torch.Tensor, coef: float) -> torch.Tensor:
     """Inverse IIR x[t] = y[t] + coef·x[t−1] as a log-depth doubling scan:
     after the step with shift s, x[t] = Σ_{j<2s} coef^j·y[t−j]; each step
@@ -136,6 +147,59 @@ def normalize_db(s: torch.Tensor, min_level_db: float) -> torch.Tensor:
 
 def denormalize_db(s: torch.Tensor, min_level_db: float) -> torch.Tensor:
     return (torch.clamp(s, 0.0, 1.0) * -min_level_db) + min_level_db
+
+
+# ----------------------------------------------------------------------------
+# STFT analysis and spectrogram features
+# ----------------------------------------------------------------------------
+
+def _frame_rows(z: torch.Tensor, width: int, hop: int, n_frames: int) -> torch.Tensor:
+    """[..., S] -> [..., n_frames, width] where frame k = z[k·hop : k·hop+width]:
+    z viewed as hop-sized rows, each frame the concat of ⌈width/hop⌉
+    consecutive rows."""
+    m = -(-width // hop)
+    Q = n_frames + m                       # rows covering the last frame (with slack)
+    tail = Q * hop - z.shape[-1]
+    if tail > 0:
+        z = torch.nn.functional.pad(z, (0, tail))
+    rows = z[..., : Q * hop].reshape(*z.shape[:-1], Q, hop)
+    frames = torch.cat([rows[..., i: i + n_frames, :] for i in range(m)], dim=-1)
+    return frames[..., :width]
+
+
+def frame_signal(y: torch.Tensor, params: STFTParams) -> torch.Tensor:
+    """Centered framing with reflect padding: [..., T] -> [..., frames, n_fft]."""
+    n_fft, hop = params.n_fft, params.hop_length
+    pad = n_fft // 2
+    lead = y.shape[:-1]
+    y = torch.nn.functional.pad(y.reshape(1, -1, y.shape[-1]), (pad, pad), mode="reflect")
+    y = y.reshape(*lead, y.shape[-1])
+    n_frames = 1 + (y.shape[-1] - n_fft) // hop
+    return _frame_rows(y, n_fft, hop, n_frames)
+
+
+def stft(y: torch.Tensor, params: STFTParams) -> torch.Tensor:
+    """Complex STFT: [..., T] -> [..., n_fft//2+1, frames] (librosa layout)."""
+    window = torch.from_numpy(hann_window(params.win_length, params.n_fft)).to(y.device)
+    frames = frame_signal(y, params) * window
+    return torch.fft.rfft(frames, n=params.n_fft, dim=-1).transpose(-1, -2)
+
+
+def linear_spectrogram(y: torch.Tensor, params: STFTParams, *, preemph: float,
+                       ref_level_db: float, min_level_db: float) -> torch.Tensor:
+    """Waveform -> normalized linear spectrogram [..., bins, frames]."""
+    d = stft(preemphasis(y, preemph), params)
+    return normalize_db(amp_to_db(d.abs()) - ref_level_db, min_level_db)
+
+
+def mel_spectrogram(y: torch.Tensor, params: STFTParams, *, sample_rate: int,
+                    num_mels: int, preemph: float, ref_level_db: float,
+                    min_level_db: float) -> torch.Tensor:
+    """Waveform -> normalized mel spectrogram [..., num_mels, frames]."""
+    d = stft(preemphasis(y, preemph), params)
+    basis = torch.from_numpy(mel_basis(sample_rate, params.n_fft, num_mels)).to(y.device)
+    mel = torch.einsum("mf,...ft->...mt", basis, d.abs())
+    return normalize_db(amp_to_db(mel) - ref_level_db, min_level_db)
 
 
 # ----------------------------------------------------------------------------

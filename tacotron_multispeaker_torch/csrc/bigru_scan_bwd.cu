@@ -1,8 +1,11 @@
-// Backward of the fused two-direction GRU scan, for Hopper (sm_90a).
+// Backward of the GRU scan, fused over directions, for Hopper (sm_90a).
 //
 // Replaces: tacotron_multispeaker_tpu/ops/gru_scan.py _bigru_scan_bwd_pallas
 // (the reverse-time kernel behind the bigru_scan custom VJP; both CBHG
-// BiGRUs of the train step).
+// BiGRUs of the train step), and _gru_scan_bwd_pallas (behind the
+// one-direction gru_scan custom VJP, models/modules.GRU with use_pallas
+// under autograd): one launcher, gru_scan_bwd_launch, with n_dirs = 2 or 1
+// (streams [T, 2, B, .] or [T, B, .]).
 //
 // For each direction d and time step t, from the last step down (direction
 // 1's streams are time-reversed by the caller, as in the forward), with
@@ -19,8 +22,8 @@
 // hprev and dxg in place.  The Pallas kernel adds these per step in VMEM;
 // over T*B rows that sum fits no block here, hence the split.
 //
-// Design: the forward's layout.  Grid = (2 directions, B rows), one block per
-// (direction, row) running all T steps in reverse; whg and whc in shared
+// Design: the forward's layout.  Grid = (n_dirs directions, B rows), one
+// block per (direction, row) running all T steps in reverse; whg and whc in shared
 // memory (3F^2 elements: 96 KB bf16 / 192 KB f32 at F=128), every per-step
 // vector in shared memory too.  The forward products (gates, candidate) take
 // one column per thread; the transposed products (v @ W^T) take one warp per
@@ -29,7 +32,8 @@
 //
 // Bound on this card: the serial dependency chain (T steps of four dependent
 // F-deep products each); the bytes streamed (~10F elements per row and step)
-// take far less time.
+// take far less time.  One direction runs B blocks of the same chain, so it
+// takes what two do.
 //
 // Limits (the Python wrapper raises outside them): 2F <= 1024 threads and
 // 3F^2*sizeof(T) + 12*F*4 bytes of shared memory <= 227 KB
@@ -54,7 +58,7 @@ bigru_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ xc,
                       const T* __restrict__ hprev, const T* __restrict__ dys,
                       const T* __restrict__ whg, const T* __restrict__ whc,
                       float* __restrict__ dxg, float* __restrict__ dxc, T* __restrict__ rh_out,
-                      float* __restrict__ dh0, int n_steps, int B, int F) {
+                      float* __restrict__ dh0, int n_steps, int n_dirs, int B, int F) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int dir = blockIdx.x;
   const int b = blockIdx.y;
@@ -84,7 +88,7 @@ bigru_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ xc,
   __syncthreads();
 
   for (int t = n_steps - 1; t >= 0; --t) {
-    const size_t row = (size_t(t) * 2 + dir) * B + b;     // row of [T, 2, B, .]
+    const size_t row = (size_t(t) * n_dirs + dir) * B + b;  // row of [T, n_dirs, B, .]
     for (int j = tid; j < F; j += blockDim.x) {
       const float v = to_f(hprev[row * F + j]);
       hp[j] = v;
@@ -162,18 +166,18 @@ bigru_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ xc,
 template <typename T>
 int launch(const void* xg, const void* xc, const void* hprev, const void* dys,
            const void* whg, const void* whc, float* dxg, float* dxc, void* rh, float* dh0,
-           int n_steps, int B, int F, cudaStream_t stream) {
+           int n_steps, int n_dirs, int B, int F, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(F);
   cudaError_t err = cudaFuncSetAttribute(bigru_scan_bwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
   const int threads = ((2 * F + 31) / 32) * 32;
-  dim3 grid(2, B);
+  dim3 grid(n_dirs, B);
   bigru_scan_bwd_kernel<T><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(xg), static_cast<const T*>(xc), static_cast<const T*>(hprev),
       static_cast<const T*>(dys), static_cast<const T*>(whg), static_cast<const T*>(whc),
-      dxg, dxc, static_cast<T*>(rh), dh0, n_steps, B, F);
+      dxg, dxc, static_cast<T*>(rh), dh0, n_steps, n_dirs, B, F);
   return int(cudaGetLastError());
 }
 
@@ -186,19 +190,22 @@ size_t bigru_scan_bwd_smem_bytes(int F, int is_bf16) {
   return is_bf16 ? smem_bytes<__nv_bfloat16>(F) : smem_bytes<float>(F);
 }
 
-// xg [T,2,B,2F], xc/hprev/dys [T,2,B,F], whg [2,F,2F], whc [2,F,F] in T (f32
-// or bf16) -> dxg [T,2,B,2F], dxc [T,2,B,F], dh0 [2,B,F] f32 and rh
-// [T,2,B,F] in T.  Returns the CUDA error code.
-int bigru_scan_bwd_launch(const void* xg, const void* xc, const void* hprev, const void* dys,
-                          const void* whg, const void* whc, void* dxg, void* dxc, void* rh,
-                          void* dh0, int n_steps, int B, int F, int is_bf16, void* stream) {
+// n_dirs = 2: xg [T,2,B,2F], xc/hprev/dys [T,2,B,F], whg [2,F,2F], whc
+// [2,F,F] in T (f32 or bf16) -> dxg [T,2,B,2F], dxc [T,2,B,F], dh0 [2,B,F]
+// f32 and rh [T,2,B,F] in T.  n_dirs = 1: the same without the direction
+// dim.  Returns the CUDA error code.
+int gru_scan_bwd_launch(const void* xg, const void* xc, const void* hprev, const void* dys,
+                        const void* whg, const void* whc, void* dxg, void* dxc, void* rh,
+                        void* dh0, int n_steps, int n_dirs, int B, int F, int is_bf16,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* gx = static_cast<float*>(dxg);
   float* cx = static_cast<float*>(dxc);
   float* h = static_cast<float*>(dh0);
   if (is_bf16)
-    return launch<__nv_bfloat16>(xg, xc, hprev, dys, whg, whc, gx, cx, rh, h, n_steps, B, F, s);
-  return launch<float>(xg, xc, hprev, dys, whg, whc, gx, cx, rh, h, n_steps, B, F, s);
+    return launch<__nv_bfloat16>(xg, xc, hprev, dys, whg, whc, gx, cx, rh, h, n_steps, n_dirs,
+                                 B, F, s);
+  return launch<float>(xg, xc, hprev, dys, whg, whc, gx, cx, rh, h, n_steps, n_dirs, B, F, s);
 }
 
 }  // extern "C"

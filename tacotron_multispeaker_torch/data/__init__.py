@@ -1,2 +1,2 @@
-"""Data helpers the serving path needs (the port's data pipeline is a later
-slice; see ROADMAP.md)."""
+"""The data path: synthetic corpora, preprocessing into features, and the
+bucketed batch feeder of the train loop."""

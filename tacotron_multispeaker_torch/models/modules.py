@@ -234,9 +234,15 @@ class GRUCellParams(nn.Module):
 
     def step(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """One step in the compute dtype (flax ``GRUCellParams.__call__``)."""
-        gates = torch.sigmoid(self.xg(x) + self.hg(h))
+        return self.step_from_proj(h, self.xg(x), self.xc(x))
+
+    def step_from_proj(self, h: torch.Tensor, xg: torch.Tensor,
+                       xc: torch.Tensor) -> torch.Tensor:
+        """One step from precomputed input projections (flax
+        ``GRUCellParams.step_from_proj``)."""
+        gates = torch.sigmoid(xg + self.hg(h))
         r, u = gates.chunk(2, dim=-1)
-        c = torch.tanh(self.xc(x) + self.hc(r * h))
+        c = torch.tanh(xc + self.hc(r * h))
         return u * h + (1.0 - u) * c
 
 
@@ -252,16 +258,55 @@ def reverse_sequences(xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 class GRU(nn.Module):
-    """One direction of a BiGRU: holds the cell (flax name ``cell``).  The
-    stand-alone unidirectional scan (kernel ``gru_scan``) is off the serving
-    path and comes with a later slice."""
+    """Unidirectional GRU over [B, T, D] with precomputed input projections
+    (flax ``GRU``; the cell's flax name is ``cell``).  Also one direction of
+    a :class:`BiGRU`, which reads its projections and weights
+    (:meth:`proj_and_weights`) and runs its own fused scan.
+
+    ``use_pallas`` runs the scan through ``ops/gru_scan.GRUScan`` (the
+    one-direction kernel and its backward on CUDA tensors, their plain
+    versions on CPU tensors); without it the scan is the per-step loop over
+    :meth:`GRUCellParams.step_from_proj`, as the JAX package's ``nn.scan``.
+    The JAX package's ``F % 128`` gate is the TPU's tiling: here the kernel
+    runs for any F within its H100 limits and raises outside them."""
 
     def __init__(self, in_dim: int, features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
         super().__init__()
         self.features = features
         self.compute_dtype = dtype
+        self.use_pallas = use_pallas
         self.cell = GRUCellParams(in_dim, features, dtype)
+
+    def forward(self, xs: torch.Tensor, lengths: torch.Tensor | None = None,
+                reverse: bool = False) -> torch.Tensor:
+        """xs [B, T, D] → ys [B, T, F]; with ``lengths`` the steps past each
+        length are zeroed, and ``reverse`` scans each sequence backwards
+        within its length."""
+        B, T, _ = xs.shape
+        if reverse:
+            if lengths is None:
+                raise ValueError("reverse=True needs lengths")
+            xs = reverse_sequences(xs, lengths)
+        xg, xc = self.cell.x_proj(xs)                    # one [B*T, D] product each
+        h0 = torch.zeros((B, self.features), dtype=xs.dtype, device=xs.device)
+        if self.use_pallas:
+            tm = lambda a: a.transpose(0, 1).contiguous()  # time-major [T, B, .]
+            ys = gru_scan.GRUScan.apply(tm(xg), tm(xc), self.cell.hg.kernel.contiguous(),
+                                        self.cell.hc.kernel.contiguous(), h0).transpose(0, 1)
+        else:
+            h, steps = h0, []
+            for t in range(T):
+                h = self.cell.step_from_proj(h, xg[:, t], xc[:, t])
+                steps.append(h)
+            ys = torch.stack(steps, dim=1)
+        if lengths is not None:
+            mask = (torch.arange(T, device=xs.device)[None, :]
+                    < lengths.to(xs.device)[:, None])[..., None]
+            ys = torch.where(mask, ys, 0.0)
+        if reverse:
+            ys = reverse_sequences(ys, lengths)
+        return ys
 
     def proj_and_weights(self, xs: torch.Tensor):
         """Input projections of the whole sequence and the recurrent weights

@@ -14,9 +14,10 @@ mesh of ranks (parallel/), one process per mesh position: each rank
 decodes its shard of a global batch and every rank gets the global result.
 
 Checkpoints: ``load_variables`` takes a flax ``{"params", "batch_stats"}``
-tree of numpy arrays (convert.py); ``save``/``load`` use the port's own
-``state_dict`` file.  Restoring an orbax checkpoint directory stands in
-ROADMAP.md.
+tree of numpy arrays (convert.py); ``save`` writes the port's own
+``state_dict`` file, and ``load`` reads it or a training checkpoint of the
+port's train loop (utils/checkpoint.py).  Restoring an orbax checkpoint
+directory stands in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from .parallel.distributed import all_gather
 from .parallel.mesh import keep_shards, param_shards
 from .text import text_to_sequence
 from .training import _fold_generator, _shard_table, sharded_speaker_embed
+from .utils import checkpoint
 
 
 class Synthesizer:
@@ -75,8 +77,9 @@ class Synthesizer:
         torch.save(self.model.state_dict(), path)
 
     def load(self, path: str) -> "Synthesizer":
-        state = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state, strict=True)
+        """Weights from a ``save`` file, a training checkpoint file, or a
+        checkpoint directory (its latest; utils/checkpoint.py)."""
+        self.model.load_state_dict(checkpoint.load_model_state(path, self.device), strict=True)
         return self
 
     # -- public API ----------------------------------------------------------

@@ -1,0 +1,238 @@
+"""The training loop: preprocessed corpus → train steps → checkpoints.
+
+Port of ``tacotron_multispeaker_tpu/train_loop.py``.  Per step: one
+``make_train_step`` update on the device, its batch from the ``Feeder`` on
+a prefetch thread.  Every ``checkpoint_interval`` steps: a checkpoint
+(utils/checkpoint.py), then inference on a training example through the
+``Synthesizer`` with the training weights, written as a Griffin-Lim WAV,
+its alignments (``.npy``) and, where matplotlib is installed, their plot
+(the reference's artifact-driven workflow).
+
+One host sync every ``sync_every = min(summary_interval, 32)`` steps reads
+the loss and aborts on a non-finite one; summaries at steps ≤ 5 and every
+``summary_interval``; after a divergence abort no checkpoint is written,
+otherwise the final state is saved.  ``profile_steps=(START, STOP)`` traces
+steps [START, STOP) with ``torch.profiler``.  Not ported yet (ROADMAP.md):
+the grain pipeline and training on more than one process.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from .config import Config
+from .data.feeder import Feeder, PrefetchIterator
+from .device import resolve_device
+from .parallel.distributed import is_primary_host
+from .training import create_train_state, make_train_step
+from .utils import infolog, plot
+from .utils.checkpoint import CheckpointManager
+from .utils.metrics import MetricsWriter
+
+log = infolog.log
+
+
+def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = None,
+          restore: bool = True, profile_steps: tuple[int, int] | None = None,
+          cmudict_path: str | None = None, pipeline: str = "feeder",
+          device=None) -> dict:
+    """Run training; returns the final step and metrics, ``step_seconds``
+    (the host time of each of the last ≤ 100 steps, as (step, seconds);
+    checkpoints and eval artifacts excluded) and, with ``profile_steps``,
+    the profiled window's summary under ``profile``.  ``device=None`` is the
+    CUDA device (raises without one)."""
+    if pipeline != "feeder":
+        raise NotImplementedError(f"pipeline={pipeline!r} is not ported yet (ROADMAP.md, "
+                                  "'Data + loop': the grain pipeline); use 'feeder'")
+    if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError("training on more than one process is not ported yet "
+                                  "(ROADMAP.md, 'Parallel training')")
+    dev = resolve_device(device)
+    os.makedirs(log_dir, exist_ok=True)
+    infolog.init(os.path.join(log_dir, "train.log"), cfg.name, enabled=is_primary_host())
+    log(cfg.debug_string())
+    log(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
+                            else ""))
+
+    model, state = create_train_state(cfg, cfg.train.seed, device=dev)
+    log(f"initialized model: {sum(p.numel() for p in model.parameters()):,} params")
+    ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
+    if restore and ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        log(f"resumed from checkpoint at step {state.step}")
+    step_fn = make_train_step(cfg, model)
+
+    writer = MetricsWriter(log_dir, use_tensorboard=os.environ.get("TACOTRON_TB") == "1",
+                           enabled=is_primary_host())
+    synth = None
+    if is_primary_host():
+        from .synthesizer import Synthesizer
+        synth = Synthesizer(cfg, device=dev, seed=cfg.train.seed)
+    batches = PrefetchIterator(iter(Feeder(data_dir, cfg, cmudict_path=cmudict_path)),
+                               prefetch=4)
+
+    max_steps = max_steps if max_steps is not None else cfg.train.max_steps
+    metrics = {}
+    t_last = time.time()
+    window = []
+    prof, prof_t0, prof_summary = None, 0.0, None
+    diverged = False
+    # The step enqueues its work without waiting for the device; reading the
+    # loss waits.  One read every ``sync_every`` steps bounds how far the
+    # host runs ahead (and with it the batches held in memory), and its
+    # value feeds the divergence check.
+    step = state.step
+    sync_every = max(1, min(cfg.train.summary_interval, 32))
+
+    def check_finite(loss: float) -> None:
+        nonlocal diverged
+        if not np.isfinite(loss):
+            diverged = True
+            log(f"loss exploded by step {step}; aborting")
+            raise FloatingPointError(f"non-finite loss at step {step}")
+
+    try:
+        while step < max_steps:
+            if profile_steps is not None:
+                if prof is None and step == profile_steps[0]:
+                    prof, prof_t0 = _start_profile(dev)
+                    log(f"profiler trace started at step {step}")
+                elif prof is not None and step >= profile_steps[1]:
+                    prof_summary = _stop_profile(prof, prof_t0, dev, log_dir, profile_steps)
+                    prof = None
+            host_batch = next(batches)
+            state, metrics = step_fn(state, *batch_to_device(host_batch, dev))
+            step += 1
+            if step % sync_every == 0:
+                check_finite(float(metrics["loss"]))
+            t_now = time.time()
+            window = (window + [(step, t_now - t_last)])[-100:]
+            t_last = t_now
+            sec_per_step = float(np.mean([dt for _, dt in window]))
+            if step % cfg.train.summary_interval == 0 or step <= 5:
+                loss = float(metrics["loss"])
+                check_finite(loss)
+                values = {k: float(metrics[k]) for k in
+                          ("loss", "mel_loss", "linear_loss", "grad_norm", "lr")}
+                writer.scalars(step, {**values, "sec_per_step": sec_per_step})
+                log(f"step {step:7d}  loss={loss:.5f}  mel={values['mel_loss']:.5f}  "
+                    f"lin={values['linear_loss']:.5f}  gnorm={values['grad_norm']:.3f}  "
+                    f"lr={values['lr']:.6f}  sec/step={sec_per_step:.3f}")
+            if step % cfg.train.checkpoint_interval == 0:
+                # the interval need not divide sync_every: check here, so a
+                # blow-up is never written as a restorable checkpoint
+                check_finite(float(metrics["loss"]))
+                _checkpoint_and_eval(ckpt, state, step, synth, host_batch, cfg, log_dir)
+                t_last = time.time()        # the next step's time leaves this out
+    finally:
+        if prof is not None:
+            prof_summary = _stop_profile(prof, prof_t0, dev, log_dir, profile_steps)
+        batches.close()
+        writer.close()
+        if diverged:
+            # saving here would make the diverged state the newest
+            # checkpoint, and restore=True would resume from it
+            log("divergence abort: final state NOT checkpointed; latest restorable "
+                "checkpoint is the last finite one")
+        elif state.step not in ckpt.steps():
+            ckpt.save(state.step, state)
+    out = {"step": state.step, **{k: float(v) for k, v in metrics.items()},
+           "step_seconds": window}
+    if prof_summary is not None:
+        out["profile"] = prof_summary
+    return out
+
+
+def batch_to_device(batch, dev) -> list[torch.Tensor]:
+    """A host ``Batch`` as ``make_train_step``'s arguments on ``dev``
+    (integer arrays as int64)."""
+    return [torch.as_tensor(a, device=dev).long() if a.dtype.kind in "iu"
+            else torch.as_tensor(a, device=dev)
+            for a in (batch.inputs, batch.input_lengths, batch.mel_targets,
+                      batch.linear_targets, batch.target_lengths, batch.speaker_ids)]
+
+
+def _checkpoint_and_eval(ckpt, state, step, synth, batch, cfg, log_dir):
+    """Save a checkpoint, then synthesize the batch's first example with the
+    training weights and write its WAV, alignments and alignment plot.  A
+    failure of the artifacts is logged and training goes on."""
+    log(f"saving checkpoint at step {step}")
+    ckpt.save(step, state)
+    if synth is None:          # non-primary processes only save
+        return
+    try:
+        synth.model.load_state_dict(state.model.state_dict())
+        dev = synth.device
+        row = lambda a: torch.as_tensor(a[:1], device=dev).long()
+        fn = synth._make_fn(cfg.model.max_iters)
+        wav, aligns, _ = fn(row(batch.inputs), row(batch.input_lengths),
+                            row(batch.speaker_ids), torch.Generator(device=dev).manual_seed(0))
+        synth.ap.save_wav(wav[0].cpu().numpy(), os.path.join(log_dir, f"step-{step}-audio.wav"))
+        align = aligns[0].cpu().numpy()
+        np.save(os.path.join(log_dir, f"step-{step}-align.npy"), align)
+        stamp = time.strftime("%Y-%m-%d %H:%M")
+        try:
+            plot.plot_alignment(align, os.path.join(log_dir, f"step-{step}-align.png"),
+                                info=f"{cfg.name}, step={step}, {stamp}")
+        except ImportError as e:    # matplotlib is optional: the .npy holds the alignment
+            log(f"alignment plot not drawn ({e})")
+        log(f"wrote eval artifacts for step {step}")
+    except Exception as e:  # noqa: BLE001 - eval artifacts must never stop training
+        log(f"eval artifact generation failed: {type(e).__name__}: {e}")
+
+
+def _start_profile(dev):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof, time.perf_counter()
+
+
+def _stop_profile(prof, t0, dev, log_dir, steps) -> dict:
+    """Stop the trace, write it to ``<log_dir>/profile/``, and log the
+    window's wall time, device-busy time (the union of the device spans),
+    idle share and top device kernels."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    os.makedirs(os.path.join(log_dir, "profile"), exist_ok=True)
+    path = os.path.join(log_dir, "profile", f"steps-{steps[0]}-{steps[1]}.json")
+    prof.export_chrome_trace(path)
+    busy_ms, n_spans, by_name = device_busy(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    summary = {"steps": list(steps), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+               "device_spans": n_spans, "top": [(name[:60], ms) for name, (ms, _) in top]}
+    if busy_ms is not None:
+        summary["idle_share"] = 1.0 - busy_ms / wall_ms
+    log(f"profiler trace of steps [{steps[0]}, {steps[1]}) written to {path}: {summary}")
+    return summary
+
+
+def device_busy(prof) -> tuple[float | None, int, dict]:
+    """Of a finished ``torch.profiler`` run: the device-busy ms (the union
+    of the device spans; None when the trace holds none), the number of
+    device spans, and {kernel name: (device ms, count)}."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, 0, {}
+    busy_us, cur_s, cur_e, by_name = 0.0, spans[0][0], spans[0][1], {}
+    for s, e, name in spans:
+        tot, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + (e - s) / 1e3, n + 1)
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    return busy_us / 1e3, len(spans), by_name

@@ -79,6 +79,13 @@ class Optimizer:
         self.adam.step()
         return norm
 
+    def state_dict(self) -> dict:
+        """The Adam moments and step counts (``torch.optim`` layout)."""
+        return self.adam.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state)
+
 
 def make_optimizer(cfg: Config, params) -> Optimizer:
     """Clip by global norm → Adam → noam schedule, over ``params``."""
@@ -122,7 +129,7 @@ def make_train_step(cfg: Config, model: Tacotron):
     clipping), and lr (float), the rate this update used."""
     if cfg.train.targets_from_wav:
         raise NotImplementedError("train.targets_from_wav is not ported yet (ROADMAP.md, "
-                                  "'Data + loop': the STFT analysis side)")
+                                  "'Data + loop': spectrogram_targets in the step)")
     tr = cfg.train
     schedule = learning_rate_schedule(cfg)
     n_speakers = cfg.model.num_speakers

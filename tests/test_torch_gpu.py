@@ -47,6 +47,14 @@ def bigru_inputs(rs, T, B, F, scale=0.3):
             f(2, F, F, sc=scale), f(2, B, F, sc=0.1))
 
 
+def gru_inputs(rs, T, B, F, scale=0.1):
+    """xg, xc, whg, whc, h0 of the one-direction ``gru_scan`` as float32
+    numpy arrays (time-major, no direction dim)."""
+    f = lambda *s, sc=1.0: (rs.randn(*s) * sc).astype(np.float32)
+    return (f(T, B, 2 * F, sc=0.5), f(T, B, F, sc=0.5), f(F, 2 * F, sc=scale),
+            f(F, F, sc=scale), f(B, F, sc=0.1))
+
+
 def decoder_case(rs, B, L, n_steps, M=80, P1=64, P2=32, H=128, A=128, D=96,
                  r=2, n_layers=2, scale=0.1):
     """(weights dict, (keys, memory, mask, dm1, dm2, attn_h0, dec_h0),
@@ -184,14 +192,24 @@ def test_decoder_loop_kernel_matches_plain_on_card(cuda, dtype, ftol, atol):
 def test_kernels_raise_outside_their_limits_on_card(cuda):
     rs = np.random.RandomState(6)
     args = [torch.from_numpy(a).to(cuda) for a in bigru_inputs(rs, T=3, B=2, F=520)]
-    before = tgs.launches
+    before = (tgs.launches, tgs.gru_launches, tgs.gru_bwd_launches)
     with pytest.raises(ValueError, match="1024 threads"):
         tgs.bigru_scan(*args)                                  # 2F > 1024
+    uni = [torch.from_numpy(a).to(cuda) for a in gru_inputs(rs, T=3, B=2, F=520)]
+    with pytest.raises(ValueError, match="1024 threads"):
+        tgs.gru_scan(*uni)
+    ys = torch.zeros((3, 2, 520), device=cuda)
+    with pytest.raises(ValueError, match="1024 threads"):
+        tgs.gru_scan_bwd(*uni[:2], ys, ys, *uni[2:4])
+    with pytest.raises(ValueError, match="shared memory"):     # f32 F=200: 480 KB of weights
+        tgs.gru_scan(*(torch.from_numpy(a).to(cuda) for a in gru_inputs(rs, 3, 2, 200)))
+    with pytest.raises(ValueError, match="contiguous"):
+        tgs.gru_scan(uni[0].transpose(0, 1).contiguous().transpose(0, 1), *uni[1:])
     w, arrays, n_steps, M = decoder_case(rs, B=2, L=7, n_steps=3, H=30, A=16, D=24)
     targs = [torch.from_numpy(a).to(cuda) for a in arrays]
     with pytest.raises(ValueError, match="multiple of 4"):
         tdl.decoder_loop(torch_weights(w, cuda), *targs, n_steps, M)   # H=30
-    assert tgs.launches == before
+    assert (tgs.launches, tgs.gru_launches, tgs.gru_bwd_launches) == before
 
 
 @pytest.mark.gpu
@@ -241,6 +259,61 @@ def test_bigru_backward_kernel_matches_plain_on_card(cuda, dtype, tol):
     for name, a, b in zip(("dxg", "dxc", "dwhg", "dwhc", "dh0"), out, ref):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
         assert _err(a, b) <= tol, (name, _err(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_gru_scan_kernels_match_plain_on_card(cuda, dtype, tol):
+    # the one-direction launchers: forward (f32 1e-5 absolute, bf16 one
+    # flipped rounding carried -> 3e-2) and the backward with its wgrad
+    # launch, every output relative to max(peak, 1) as the bigru backward's
+    rs = np.random.RandomState(12)
+    xg, xc, whg, whc, h0 = (torch.from_numpy(a).to(cuda)
+                            for a in gru_inputs(rs, T=33, B=5, F=96, scale=0.08))
+    xg, xc, whg, whc = (a.to(dtype) for a in (xg, xc, whg, whc))
+    before = (tgs.gru_launches, tgs.gru_bwd_launches, twg.launches, tgs.launches)
+    ys = tgs.gru_scan(xg, xc, whg, whc, h0)
+    ref = tgs.gru_scan_reference(xg, xc, whg, whc, h0)
+    hprev = torch.cat([h0[None].to(dtype), ys[:-1]]).contiguous()
+    dys = torch.from_numpy(rs.randn(*ys.shape).astype(np.float32)).to(cuda).to(dtype)
+    out = tgs.gru_scan_bwd(xg, xc, hprev, dys, whg, whc)
+    out_r = tgs.gru_scan_bwd_reference(xg, xc, hprev, dys, whg, whc)
+    torch.cuda.synchronize()
+    assert (tgs.gru_launches - before[0], tgs.gru_bwd_launches - before[1],
+            twg.launches - before[2], tgs.launches - before[3]) == (1, 1, 1, 0)
+    assert ys.dtype == dtype and ys.shape == (33, 5, 96)
+    assert (ys.float() - ref.float()).abs().max().item() <= (1e-5 if dtype == torch.float32
+                                                             else tol)
+    for name, a, b in zip(("dxg", "dxc", "dwhg", "dwhc", "dh0"), out, out_r):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert _err(a, b) <= tol, (name, _err(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_module_on_card_matches_plain(cuda, reverse):
+    # GRU(use_pallas=True) forward and parameter gradients through autograd,
+    # f32, ragged lengths: kernel route on the card against the same module
+    # on the CPU (plain versions): sums in other orders -> 1e-4 of max(peak, 1)
+    from tacotron_multispeaker_torch.models.modules import GRU
+    rs = np.random.RandomState(13)
+    xs = torch.from_numpy(rs.randn(3, 25, 64).astype(np.float32))
+    lengths = torch.tensor([25, 11, 17])
+    w = torch.from_numpy(rs.randn(3, 25, 128).astype(np.float32))
+    cpu = GRU(64, 128, use_pallas=True)
+    gpu = GRU(64, 128, use_pallas=True).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    before = (tgs.gru_launches, tgs.gru_bwd_launches, twg.launches)
+    ys_g = gpu(xs.to(cuda), lengths.to(cuda), reverse=reverse)
+    (ys_g * w.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert (tgs.gru_launches - before[0], tgs.gru_bwd_launches - before[1],
+            twg.launches - before[2]) == (1, 1, 1)
+    ys_c = cpu(xs, lengths, reverse=reverse)
+    (ys_c * w).sum().backward()
+    assert _err(ys_g.cpu(), ys_c) <= 1e-4
+    for (n, a), (_, b) in zip(gpu.named_parameters(), cpu.named_parameters()):
+        assert _err(a.grad.cpu(), b.grad) <= 1e-4, n
 
 
 def _teacher_on_card(cuda, dtype, S=6, B=3, L=13, H=128, A=128, D=96, seed=8):
