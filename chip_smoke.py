@@ -168,8 +168,12 @@ def phase_build():
     for name, rec in info.items():
         log(f"[build] {name}: {rec['seconds']:.2f} s -> {os.path.relpath(rec['path'], REPO)}")
         for line in rec["ptxas"].splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling entry", "smem")):
+            if (any(w in line for w in ("registers", "spill", "Compiling entry", "smem"))
+                    and "C7519" not in line):
                 log(f"[ptxas] {name}: {line.strip()}")
+        if "C7519" in rec["ptxas"]:
+            log(f"[ptxas] {name}: {rec['ptxas'].count('C7519')} notes C7519 (warpgroup.arrive "
+                f"injected by ptxas around wgmma accumulators)")
 
 
 # --------------------------------------------------------------------------
@@ -788,53 +792,111 @@ def _conv_bank_case(B, T, D, K, C, dtype, seed):
     return x, w.to(dtype), b.to(dtype)
 
 
+def _conv_bank_flops(B, T, D, K, C, masked):
+    """2·B·T·D times the taps the function needs: Σ_k k·C over the width
+    groups with the mask, K·O without it."""
+    taps = C * K * (K + 1) // 2 if masked else K * K * C
+    return 2 * B * T * D * taps
+
+
 def phase_conv_bank():
     import torch
     import torch.nn.functional as F
     from tacotron_multispeaker_torch.ops import conv_bank as cb
+    from tacotron_multispeaker_torch.ops import cuda_build
+    for line in cuda_build.build_info["conv_bank"]["ptxas"].splitlines():
+        if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")) \
+                and "C7519" not in line:
+            log(f"[conv_bank] ptxas: {line.strip()}")
+    for label, (B, T, D, K, C) in CONV_BANK_SHAPES.items():
+        for Bn, Tn in ((B, T), (1, 96 if label == "encoder" else T)):
+            log(f"[conv_bank] {label} B={Bn} T={Tn} D={D} bf16 launch: layout {cb.a_layout(D)}, "
+                f"{cb.bf16_plan(Bn, Tn, D, K, K * C)} (dynamic shared memory a block)")
     # f32: the same products summed in another order -> 1e-5 of the peak.
     # bf16: the products are exact in f32; the f32 sum-order difference
     # (the f32 allowance, 1e-5 of the peak) can move the one final rounding
-    # by one ulp (at most 2^-7 of the value)
+    # by one ulp (at most 2^-7 of the value).  Both with the mask given
+    # (bank_channels, as ConvBank calls it) and without.
     worst = 0.0
     for label, (B, T, D, K, C) in CONV_BANK_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             x, w, b = _conv_bank_case(B, T, D, K, C, dtype, seed=K)
-            with torch.inference_mode():
-                y, ref = cb.conv_bank(x, w, b), cb.conv_bank_reference(x, w, b)
-            torch.cuda.synchronize()
-            err = _rel_err(y, ref)
-            if dtype == torch.float32:
-                ok, tol = err <= 1e-5, "1e-5 of the peak"
-            else:
-                peak = ref.float().abs().max().item()
-                ok = bool(((y.float() - ref.float()).abs()
-                           <= 2 ** -7 * ref.float().abs() + 1e-5 * peak).all())
-                tol = "one bf16 ulp per element + 1e-5 of the peak"
-            log(f"[conv_bank] {label} B={B} T={T} D={D} K={K} O={K * C} {str(dtype)[6:]}: "
-                f"max|kernel-plain|/max|plain| {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"conv_bank disagrees with its plain version: {label}")
-            worst = max(worst, err)
-    ms = plain_ms = lib_ms = bound_s = 0.0
+            for bc in (C, None):
+                with torch.inference_mode():
+                    y = cb.conv_bank(x, w, b, bank_channels=bc)
+                    ref = cb.conv_bank_reference(x, w, b, bank_channels=bc)
+                torch.cuda.synchronize()
+                err = _rel_err(y, ref)
+                if dtype == torch.float32:
+                    ok, tol = err <= 1e-5, "1e-5 of the peak"
+                else:
+                    peak = ref.float().abs().max().item()
+                    ok = bool(((y.float() - ref.float()).abs()
+                               <= 2 ** -7 * ref.float().abs() + 1e-5 * peak).all())
+                    tol = "one bf16 ulp per element + 1e-5 of the peak"
+                log(f"[conv_bank] {label} B={B} T={T} D={D} K={K} O={K * C} "
+                    f"{str(dtype)[6:]} bank_channels={bc}: max|kernel-plain|/max|plain| "
+                    f"{err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"conv_bank disagrees with its plain version: "
+                                         f"{label} {dtype} bank_channels={bc}")
+                worst = max(worst, err)
+    ms = plain_ms = lib_ms = bound_s = bound_full_s = 0.0
     for label, (B, T, D, K, C) in CONV_BANK_SHAPES.items():
-        x, w, b = _conv_bank_case(B, T, D, K, C, torch.bfloat16, seed=K + 1)
-        xp = F.pad(x.transpose(1, 2), ((K - 1) // 2, K // 2)).contiguous()
-        wt = w.permute(2, 1, 0).contiguous()
-        with torch.inference_mode():
-            k_ms = cuda_time_ms(lambda: cb.conv_bank(x, w, b), reps=20)
-            p_ms = cuda_time_ms(lambda: cb.conv_bank_reference(x, w, b), reps=5)
-            l_ms = cuda_time_ms(lambda: F.conv1d(xp, wt, b), reps=20)
-        O = K * C
-        bound = _bound_ms(_nbytes(x, w, b) + B * T * O * 2, bf16_flops=2 * B * T * D * K * O)
-        log(f"[conv_bank] {label} B={B} T={T} D={D} K={K} O={O} bf16: kernel {k_ms:.3f} ms, "
-            f"plain {p_ms:.3f} ms, F.conv1d {l_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
-        ms, plain_ms, lib_ms, bound_s = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms, bound_s + bound[0]
+        for Bn in (B, 1):
+            for Tn in ((96, 192) if label == "encoder" and Bn == 1 else (T,)):
+                x, w, b = _conv_bank_case(Bn, Tn, D, K, C, torch.bfloat16, seed=K + 1)
+                xp = F.pad(x.transpose(1, 2), ((K - 1) // 2, K // 2)).contiguous()
+                wt = w.permute(2, 1, 0).contiguous()
+                run = lambda: cb.conv_bank(x, w, b, bank_channels=C)  # noqa: E731
+                with torch.inference_mode():
+                    k_ms = cuda_time_ms(run, reps=50, warmup=3)
+                    dev_ms = _device_ms(run, 20, "conv_bank")
+                    full_ms = cuda_time_ms(lambda: cb.conv_bank(x, w, b), reps=50, warmup=3)
+                    l_ms = cuda_time_ms(lambda: F.conv1d(xp, wt, b), reps=50, warmup=3)
+                    p_ms = (cuda_time_ms(lambda: cb.conv_bank_reference(x, w, b, C), reps=5)
+                            if Bn == B else float("nan"))
+                O = K * C
+                nbytes = _nbytes(x, w, b) + Bn * Tn * O * 2
+                bound = _bound_ms(nbytes, bf16_flops=_conv_bank_flops(Bn, Tn, D, K, C, True))
+                bound_full = _bound_ms(nbytes,
+                                       bf16_flops=_conv_bank_flops(Bn, Tn, D, K, C, False))
+                log(f"[conv_bank] {label} B={Bn} T={Tn} D={D} K={K} O={O} bf16 "
+                    f"bank_channels={C}: kernel {k_ms:.4f} ms (device {dev_ms:.4f}), "
+                    f"all taps {full_ms:.4f} ms, F.conv1d {l_ms:.4f} ms, plain {p_ms:.3f} ms, "
+                    f"bound {bound[0]:.4f} ms ({bound[1]}, nonzero taps; "
+                    f"{bound_full[0]:.4f} with every tap), {100 * bound[0] / k_ms:.1f}% of "
+                    f"the bound, {'faster' if k_ms < l_ms else 'NOT faster'} than F.conv1d")
+                if Bn == B:
+                    ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+                    bound_s, bound_full_s = bound_s + bound[0], bound_full_s + bound_full[0]
+        if D % 64:
+            # the A-operand layout for a D that is not a multiple of 64: the
+            # launcher's choice against the other one, same inputs
+            x, w, b = _conv_bank_case(B, T, D, K, C, torch.bfloat16, seed=K + 1)
+            with torch.inference_mode():
+                ref = cb.conv_bank_reference(x, w, b, C)
+                times = {}
+                for lay in ("narrow", "wide"):
+                    y = cb._launch(x, w, b, C, layout=lay)
+                    torch.cuda.synchronize()
+                    if not torch.equal(y, cb.conv_bank(x, w, b, bank_channels=C)):
+                        peak = ref.float().abs().max().item()
+                        assert bool(((y.float() - ref.float()).abs()
+                                     <= 2 ** -7 * ref.float().abs() + 1e-5 * peak).all()), lay
+                    times[lay] = cuda_time_ms(lambda: cb._launch(x, w, b, C, layout=lay),
+                                              reps=50, warmup=3)
+            log(f"[conv_bank] {label} D={D} A-operand layout: narrow (16-channel boxes, "
+                f"32-byte swizzle) {times['narrow']:.4f} ms, wide (64-channel boxes, "
+                f"128-byte swizzle, D zero-filled to {-(-D // 64) * 64}) "
+                f"{times['wide']:.4f} ms; the launcher takes {cb.a_layout(D)}")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_s, "bound_by": "operations",
-            "shape": "both banks of a B=32 batch, summed: encoder B=32 T=192 D=128 K=16 "
-                     "O=2048 + post-net B=32 T=1000 D=80 K=8 O=1024, bf16",
-            "error": "max |kernel - plain| / max |plain|, f32 and bf16"}
+            "bound_ms": bound_s, "bound_by": "operations", "bound_all_taps_ms": bound_full_s,
+            "shape": "both banks of a B=32 batch as ConvBank calls them (bank_channels=128), "
+                     "summed: encoder B=32 T=192 D=128 K=16 O=2048 + post-net B=32 T=1000 "
+                     "D=80 K=8 O=1024, bf16; bound on the nonzero taps",
+            "error": "max |kernel - plain| / max |plain|, f32 and bf16, with and without "
+                     "bank_channels"}
 
 
 def _attention_case(B, L, A, D, dtype, seed, loc=True):
@@ -1994,6 +2056,7 @@ def main() -> int:
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name].get("library_ms"),
          **({} if name not in LIBRARY_NULL else {"library_ms_null": LIBRARY_NULL[name]}),
+         **{k: v for k, v in kern[name].items() if k == "bound_all_taps_ms"},
          "shape": kern[name]["shape"]}
         for name, (src, replaces, path) in KERNEL_META.items()]}
     log(smi)

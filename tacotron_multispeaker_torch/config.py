@@ -19,10 +19,13 @@ switches, as in the JAX package:
   selects the fused decoder loop; otherwise ``generate`` runs the per-step
   decode.  The TPU's ``% 128`` gates do not carry over.
 
-The other switches (``use_pallas_gru``, ``use_pallas_teacher``,
-``use_pallas_seq_attention``) are kept so that a config round-trips between
-the two packages; the port does not read them: the BiGRU scans and the
-teacher decoder always run in their kernels.
+``use_pallas_seq_attention`` is read too: in the sequence-sharded decode
+(``Synthesizer.make_sharded_synth`` with the encoder length over the model
+axis) it runs each shard's attention step in the attention-partial kernel;
+off, the shards take its plain version.  The other two switches
+(``use_pallas_gru``, ``use_pallas_teacher``) are kept so that a config
+round-trips between the two packages; the port does not read them: the
+BiGRU scans and the teacher decoder always run in their kernels.
 """
 
 from __future__ import annotations

@@ -165,14 +165,9 @@ class ConvBN(nn.Module):
 def _bank_mask(bank_k: int, channels: int) -> np.ndarray:
     """[K, 1, K*C] binary mask fusing sub-widths 1..K into one width-K conv:
     sub-conv of width k, tap i, sits at fused tap i + (K-1)//2 - (k-1)//2,
-    so each channel group keeps its own SAME centering."""
-    K, C = bank_k, channels
-    mask = np.zeros((K, 1, K * C), dtype=np.float32)
-    center = (K - 1) // 2
-    for k in range(1, K + 1):
-        off = center - (k - 1) // 2
-        mask[off: off + k, :, (k - 1) * C: k * C] = 1.0
-    return mask
+    so each channel group keeps its own SAME centering
+    (ops/conv_bank.bank_mask, which the kernel's tap ranges follow)."""
+    return cb_ops.bank_mask(bank_k, channels, bank_k * channels).numpy()
 
 
 class ConvBank(nn.Module):
@@ -181,7 +176,8 @@ class ConvBank(nn.Module):
     [K*C, in, K]); the mask is applied at run time.
 
     ``use_pallas`` (the JAX package's switch) routes the product through the
-    conv-bank kernel (ops/conv_bank.py, inference only) with its rounding:
+    conv-bank kernel (ops/conv_bank.py, inference only; told the group width,
+    so it skips the taps the mask zeroes) with its rounding:
     f32 sums, the bias rounded to the compute dtype and added in f32, ReLU,
     one rounding.  Without it ``F.conv1d`` rounds the conv output to the
     compute dtype before the f32 bias and ReLU, as the JAX XLA path does."""
@@ -192,6 +188,7 @@ class ConvBank(nn.Module):
         self.compute_dtype = dtype
         self.use_pallas = use_pallas
         self.bank_k = bank_k
+        self.channels = channels
         self.weight = nn.Parameter(torch.empty(bank_k * channels, in_channels, bank_k))
         self.bias = nn.Parameter(torch.zeros(bank_k * channels))
         mask = torch.from_numpy(_bank_mask(bank_k, channels)).permute(2, 1, 0)
@@ -203,7 +200,7 @@ class ConvBank(nn.Module):
         kernel = (self.weight * self.mask).to(dt)
         if self.use_pallas:
             y = cb_ops.conv_bank(x.to(dt).contiguous(), kernel.permute(2, 1, 0).contiguous(),
-                                 self.bias.to(dt))
+                                 self.bias.to(dt), bank_channels=self.channels)
             return self.bn(y)
         xp = F.pad(x.to(dt).transpose(1, 2), _same_pad(self.bank_k))
         y = F.conv1d(xp, kernel).transpose(1, 2)

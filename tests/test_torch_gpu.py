@@ -468,26 +468,72 @@ def _card(arrays, cuda, dtype=None):
     return out
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_bank_kernel_matches_plain_on_card(cuda, dtype):
-    # encoder-bank widths (D=128, K=16, 2048 channels), B*T = 4*37 rows (not
-    # a multiple of the 64-row tile).  f32: the same products summed in
-    # another order -> 1e-5 of the peak; bf16: exact products, and that
-    # sum-order difference may move the final rounding by one ulp
-    rs = np.random.RandomState(12)
-    x, w, b = _card(conv_bank_case(rs, 4, 37, 128, 16, 128), cuda, dtype)
-    before = tcb.launches
-    with torch.inference_mode():
-        y = tcb.conv_bank(x, w, b)
-        ref = tcb.conv_bank_reference(x, w, b)
-    torch.cuda.synchronize()
-    assert tcb.launches == before + 1 and y.dtype == dtype
+def _conv_bank_close(y, ref, dtype):
+    # f32: the same products summed in another order -> 1e-5 of the peak;
+    # bf16: exact products, and that sum-order difference may move the final
+    # rounding by one ulp
     if dtype == torch.float32:
         assert _err(y, ref) <= 1e-5
     else:
         peak = ref.float().abs().max().item()
         torch.testing.assert_close(y.float(), ref.float(), rtol=2 ** -7, atol=1e-5 * peak)
+
+
+CONV_BANK_CARD_CASES = {
+    # (B, T, D, K, C, masked w); no T is a multiple of the 128- or 192-row tile
+    "encoder": (4, 37, 128, 16, 128, True),     # the encoder bank's widths
+    "post-net": (2, 200, 80, 8, 128, True),     # the post-net's: D = 80, narrow A
+    "odd-K": (3, 50, 64, 5, 128, True),
+    "B=1": (1, 96, 128, 16, 128, True),
+    # groups narrower than a bf16 tile, an unmasked w, D zero-filled to 32
+    "narrow-groups": (2, 45, 24, 4, 32, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("case", list(CONV_BANK_CARD_CASES))
+def test_conv_bank_kernel_matches_plain_on_card(cuda, case, with_mask, dtype):
+    B, T, D, K, C, masked = CONV_BANK_CARD_CASES[case]
+    rs = np.random.RandomState(12)
+    x, w, b = _card(conv_bank_case(rs, B, T, D, K, C), cuda, dtype)
+    if not masked:
+        w = torch.from_numpy(rs.randn(K, D, K * C).astype(np.float32) / np.sqrt(K * D)).to(
+            cuda, dtype)
+    bc = C if with_mask else None
+    before = tcb.launches
+    with torch.inference_mode():
+        y = tcb.conv_bank(x, w, b, bank_channels=bc)
+        ref = tcb.conv_bank_reference(x, w, b, bank_channels=bc)
+    torch.cuda.synchronize()
+    assert tcb.launches == before + 1 and y.dtype == dtype and y.shape == (B, T, K * C)
+    _conv_bank_close(y, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [80, 128])
+@pytest.mark.parametrize("layout", list(tcb.LAYOUTS))
+def test_conv_bank_bf16_layouts_match_plain_on_card(cuda, D, layout):
+    # both A-operand layouts of the bf16 kernel, whichever the launcher takes
+    rs = np.random.RandomState(13)
+    x, w, b = _card(conv_bank_case(rs, 2, 130, D, 8, 128), cuda, torch.bfloat16)
+    with torch.inference_mode():
+        y = tcb._launch(x, w, b, 128, layout=layout)
+        ref = tcb.conv_bank_reference(x, w, b, bank_channels=128)
+    torch.cuda.synchronize()
+    _conv_bank_close(y, ref, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_conv_bank_raises_outside_its_limits_on_card(cuda):
+    # bf16 TMA tiles need D and O multiples of 8; no fallback, no launch
+    rs = np.random.RandomState(14)
+    x, w, b = _card(conv_bank_case(rs, 2, 9, 12, 4, 8), cuda, torch.bfloat16)
+    before = tcb.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tcb.conv_bank(x, w, b, bank_channels=8)
+    assert tcb.launches == before
 
 
 @pytest.mark.gpu

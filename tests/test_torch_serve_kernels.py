@@ -19,6 +19,8 @@ from tacotron_multispeaker_tpu.ops.attention_step import attention_step_pallas  
 from tacotron_multispeaker_tpu.ops.conv_bank import conv_bank_pallas  # noqa: E402
 from tacotron_multispeaker_tpu.ops.gl_iteration import gl_fast_iterations_pallas  # noqa: E402
 from tacotron_multispeaker_tpu.ops.overlap_add import overlap_add_pallas  # noqa: E402
+from tacotron_multispeaker_tpu.models.modules import _bank_mask  # noqa: E402
+from tacotron_multispeaker_torch.models.modules import ConvBank  # noqa: E402
 from tacotron_multispeaker_torch.ops import attention_step as tas  # noqa: E402
 from tacotron_multispeaker_torch.ops import conv_bank as tcb  # noqa: E402
 from tacotron_multispeaker_torch.ops import gl_iteration as tgl  # noqa: E402
@@ -53,6 +55,77 @@ def test_conv_bank_plain_matches_pallas_interpret(B, T, D, K, C, dtype):
         # bf16 products are exact in f32; the f32 sum-order difference (as
         # above) can move the one final rounding by one bf16 ulp
         np.testing.assert_allclose(y_t.float().numpy(), y_j, rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,T,D,K,C,dtype", [
+    (2, 13, 10, 3, 4, "float32"),      # odd K, D not a multiple of 16, T of 8
+    (2, 13, 10, 4, 4, "float32"),      # even K
+    (1, 21, 10, 8, 3, "float32"),      # the post-net's K
+    (2, 13, 10, 4, 4, "bfloat16"),
+    (2, 13, 10, 8, 3, "bfloat16"),
+])
+def test_conv_bank_with_bank_channels_matches_pallas_interpret(B, T, D, K, C, dtype):
+    # the bank's function (the mask applied from bank_channels) against the
+    # Pallas kernel on the masked weight that conv_bank_case makes
+    rs = np.random.RandomState(K + 20)
+    (x_t, x_j), (w_t, w_j), (b_t, b_j) = (_both(a, dtype) for a in
+                                          conv_bank_case(rs, B, T, D, K, C))
+    y_t = tcb.conv_bank(x_t, w_t, b_t, bank_channels=C)
+    y_j = np.asarray(conv_bank_pallas(x_j, w_j, b_j, interpret=True).astype(jnp.float32))
+    assert y_t.dtype == x_t.dtype and y_t.shape == (B, T, K * C)
+    peak = np.abs(y_j).max()
+    if dtype == "float32":
+        # the same f32 products, summed in another order -> 1e-5 of the peak
+        np.testing.assert_allclose(y_t.numpy(), y_j, rtol=0, atol=1e-5 * peak)
+    else:
+        # exact bf16 products; the sum order may move the rounding one ulp
+        np.testing.assert_allclose(y_t.float().numpy(), y_j, rtol=2 ** -7, atol=1e-5 * peak)
+
+
+@pytest.mark.parametrize("K,C,groups", [(3, 4, 3), (4, 2, 4), (8, 3, 8), (8, 4, 5)])
+def test_conv_bank_with_bank_channels_masks_any_weight(K, C, groups):
+    # an unmasked w: bank_channels=C computes the conv of w ⊙ mask, the mask
+    # being the JAX package's _bank_mask (its first groups*C columns when the
+    # bank has fewer groups than taps)
+    rs = np.random.RandomState(K * C)
+    B, T, D, O = 2, 11, 6, groups * C
+    x = torch.from_numpy(rs.randn(B, T, D).astype(np.float32))
+    w = torch.from_numpy(rs.randn(K, D, O).astype(np.float32))
+    b = torch.from_numpy(rs.randn(O).astype(np.float32) * 0.1)
+    mask = torch.from_numpy(_bank_mask(K, C)[:, :, :O])
+    torch.testing.assert_close(tcb.bank_mask(K, C, O), mask, rtol=0, atol=0)
+    y = tcb.conv_bank(x, w, b, bank_channels=C)
+    torch.testing.assert_close(y, tcb.conv_bank(x, w * mask, b), rtol=0, atol=0)
+    assert not torch.equal(y, tcb.conv_bank(x, w, b))        # the mask mattered
+
+
+def test_conv_bank_bank_channels_must_divide_the_columns():
+    rs = np.random.RandomState(21)
+    x, w, b = map(torch.from_numpy, conv_bank_case(rs, 1, 5, 4, 3, 2))   # O = 6
+    with pytest.raises(ValueError, match="bank_channels=4"):
+        tcb.conv_bank(x, w, b, bank_channels=4)
+    with pytest.raises(ValueError, match="bank_channels=1"):             # 6 groups > K
+        tcb.conv_bank(x, w, b, bank_channels=1)
+    with pytest.raises(ValueError, match="bank_channels=0"):
+        tcb.conv_bank(x, w, b, bank_channels=0)
+
+
+def test_conv_bank_module_passes_its_group_width(monkeypatch):
+    # ConvBank(use_pallas=True) tells the kernel its group width, so the
+    # kernel can skip the taps the mask zeroes
+    calls = []
+    real = tcb.conv_bank
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tcb, "conv_bank", spy)
+    bank = ConvBank(6, 4, 5, use_pallas=True).eval()
+    torch.nn.init.normal_(bank.weight)
+    with torch.no_grad():
+        y = bank(torch.from_numpy(np.random.RandomState(3).randn(2, 9, 6).astype(np.float32)))
+    assert calls == [{"bank_channels": 5}] and y.shape == (2, 9, 20)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
