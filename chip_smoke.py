@@ -1061,17 +1061,18 @@ def phase_overlap_add():
             "error": "max |kernel - plain| / max |plain|, f32 and bf16 frames"}
 
 
-def _gl_case(B, F, seed, n_fft=2048, hop=275, broadband=False):
+def _gl_case(B, F, seed, n_fft=2048, hop=275, broadband=False, win=None, frame_win=None):
     """A magnitude [B, F, bins] and initial frames [B, F, n_fft] from random
     phases (irfft, overlap-add, re-framing with the window), as Griffin-Lim
     starts.  The magnitude is a harmonic test signal's (f0 from 100 Hz up,
     8 harmonics at 22.05 kHz: most bins near zero), or with ``broadband``
     |randn| in every bin (every bin carries weight in an elementwise check).
-    torch.fft makes this test data only."""
+    ``win`` defaults to the serving window; the frames are windowed by
+    ``frame_win`` (default ``win``).  torch.fft makes this test data only."""
     import math
     import torch
     from tacotron_multispeaker_torch.ops.overlap_add import overlap_add_plain
-    win = _window(n_fft)
+    win = _window(n_fft) if win is None else win
     g = torch.Generator(device="cuda").manual_seed(seed)
     if broadband:
         mag = torch.randn((B, F, n_fft // 2 + 1), generator=g, device="cuda").abs()
@@ -1082,7 +1083,7 @@ def _gl_case(B, F, seed, n_fft=2048, hop=275, broadband=False):
         mag = torch.fft.rfft(y.unfold(-1, n_fft, hop) * win).abs().float().contiguous()
     phase = (torch.rand(mag.shape, generator=g, device="cuda") * 2 - 1) * math.pi
     sig = overlap_add_plain(torch.fft.irfft(torch.polar(mag, phase), n=n_fft), win, hop)
-    wf0 = (sig.unfold(-1, n_fft, hop) * win).contiguous()
+    wf0 = (sig.unfold(-1, n_fft, hop) * (win if frame_win is None else frame_win)).contiguous()
     return wf0, mag, win
 
 
@@ -1097,11 +1098,40 @@ def _spectral_convergence(sre, sim, mag, win, hop):
     return ((st - mag).norm() / mag.norm()).item()
 
 
-def phase_gl_iteration():
+GL_KERNELS = ("gl_fwd", "gl_inv", "gl_ola")    # kernel-name stems of csrc/gl_iteration.cu
+
+
+def _device_split_ms(fn, stems, reps=2):
+    """Device ms a call of ``fn`` spends in the kernels whose names start
+    with each stem (torch.profiler over ``reps`` calls, after one)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tacotron_multispeaker_torch.train_loop import device_busy
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, _, by_name = device_busy(prof)
+    split = {s: sum(ms for name, (ms, _) in by_name.items() if s in name.split("<")[0]) / reps
+             for s in stems}
+    launches = {s: sum(n for name, (_, n) in by_name.items() if s in name.split("<")[0]) // reps
+                for s in stems}
+    return split, launches
+
+
+def phase_gl_iteration():
+    import numpy as np
+    import torch
+    from tacotron_multispeaker_torch.audio.dsp import STFTParams, griffin_lim
     from tacotron_multispeaker_torch.ops import gl_iteration as gl
     B, F, n_fft, hop = 32, 1000, 2048, 275
     mom = 0.99 / 1.99
+    win = _window()
+    lo, hi = gl.window_support(win.cpu().numpy())
+    log(f"[gl_iteration] serving window hann(1102) in {n_fft}: nonzero samples "
+        f"{int((win != 0).sum())}, support [{lo}, {hi}) (rounded out to {gl.K_STEP})")
     # two iterations elementwise on a broadband magnitude (every bin of
     # every output near the same scale, peak ~7x the RMS).  Per output and
     # dtype: (a) the elements off by more than `peak` of the output's peak,
@@ -1113,35 +1143,52 @@ def phase_gl_iteration():
     # bf16: a flipped rounding turns the phase of a bin where |S| ~ 0
     # (chaotic, as the JAX test says): 5 and 7 of sre's and sim's 3.28e7
     # elements pass the JAX package's 3e-2 of the peak, so at most 1e-6 of
-    # them may (32 elements); norm 3e-3 (3.1e-4 on the H100)
+    # them may (32 elements); norm 3e-3 (3.1e-4 on the H100).
+    # Three cases: the serving window and frames windowed by it (the
+    # serving path's input); the serving window and frames windowed by a
+    # window with no zero, so nonzero outside the serving window's support
+    # (iteration 1 must read the whole frame); a window with no zero (the
+    # whole frame is the support).  Unwindowed frames (no taper at all) put
+    # more bins near |a| ~ 0 in iteration 2: 50 and 37 bf16 elements past
+    # 3e-2 in the old tile with the support, 1 f32 element past 1e-3 in the
+    # new one, with every norm-wise error within its limit.
     tol = {torch.float32: (1e-3, 0.0, 1e-5), torch.bfloat16: (3e-2, 1e-6, 3e-3)}
-    wf0, mag, win = _gl_case(B, F, seed=51, broadband=True)
+    off_zero = torch.from_numpy(np.hanning(n_fft).astype(np.float32) + 0.05).cuda()
+    cases = {"serving window, frames windowed by it": dict(),
+             "serving window, frames nonzero outside its support": dict(frame_win=off_zero),
+             "window without zeros": dict(win=off_zero)}
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        w0 = wf0.to(dtype)
-        out = gl.gl_fast_iterations(w0, mag, win, hop, 2, mom)
-        ref = gl.gl_fast_iterations_reference(w0, mag, win, hop, 2, mom)
-        torch.cuda.synchronize()
-        names = ("sre", "sim", "pre", "pim")
-        peak, share, bulk_tol = tol[dtype]
-        errs, over, bulk = {}, {}, {}
-        for n, a, b in zip(names, out, ref):
-            e = (a - b).abs()
-            errs[n] = (e.max() / b.abs().max()).item()
-            over[n] = int((e > peak * b.abs().max()).sum())
-            bulk[n] = (e.norm() / b.norm()).item()
-        n_max = int(share * out[0].numel())
-        log(f"[gl_iteration] B={B} F={F} n_fft={n_fft} hop={hop} 2 iterations "
-            f"{str(dtype)[6:]}, broadband: max|kernel-plain|/max|plain| "
-            + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
-            + f"; elements past {peak:.0e} of the peak "
-            + " ".join(f"{n} {c}" for n, c in over.items()) + f" (at most {n_max}); "
-            "||kernel-plain||/||plain|| "
-            + " ".join(f"{n} {e:.3e}" for n, e in bulk.items()) + f" (tol {bulk_tol:.0e})")
-        if not (max(over.values()) <= n_max and max(bulk.values()) <= bulk_tol):
-            raise AssertionError("gl_iteration disagrees with its plain version")
-        worst = max(worst, *errs.values())
-        del out, ref
+    for label, kw in cases.items():
+        wf0, mag, w = _gl_case(B, F, seed=51, broadband=True, **kw)
+        if label == "serving window, frames nonzero outside its support":
+            outside = torch.cat([wf0[..., :lo], wf0[..., hi:]], -1)
+            assert bool((outside != 0).any()), "the frames must be nonzero outside the support"
+        for dtype in (torch.float32, torch.bfloat16):
+            w0 = wf0.to(dtype)
+            out = gl.gl_fast_iterations(w0, mag, w, hop, 2, mom)
+            ref = gl.gl_fast_iterations_reference(w0, mag, w, hop, 2, mom)
+            torch.cuda.synchronize()
+            names = ("sre", "sim", "pre", "pim")
+            peak, share, bulk_tol = tol[dtype]
+            errs, over, bulk = {}, {}, {}
+            for n, a, b in zip(names, out, ref):
+                e = (a - b).abs()
+                errs[n] = (e.max() / b.abs().max()).item()
+                over[n] = int((e > peak * b.abs().max()).sum())
+                bulk[n] = (e.norm() / b.norm()).item()
+            n_max = int(share * out[0].numel())
+            log(f"[gl_iteration] B={B} F={F} n_fft={n_fft} hop={hop} 2 iterations "
+                f"{str(dtype)[6:]}, broadband, {label}: max|kernel-plain|/max|plain| "
+                + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f"; elements past {peak:.0e} of the peak "
+                + " ".join(f"{n} {c}" for n, c in over.items()) + f" (at most {n_max}); "
+                "||kernel-plain||/||plain|| "
+                + " ".join(f"{n} {e:.3e}" for n, e in bulk.items()) + f" (tol {bulk_tol:.0e})")
+            if not (max(over.values()) <= n_max and max(bulk.values()) <= bulk_tol):
+                raise AssertionError(f"gl_iteration disagrees with its plain version: {label}")
+            worst = max(worst, *errs.values())
+            del out, ref
+        del wf0, mag
     # the serving path's 12 fast bf16 iterations on the harmonic signal: the
     # phase estimates of the two diverge in detail, so they are held by what
     # Griffin-Lim minimises, the spectral convergence of the signal each
@@ -1160,27 +1207,51 @@ def phase_gl_iteration():
     if not (abs(sc_k - sc_p) <= 0.1 * sc_p and sc_k < 0.5 * sc0):
         raise AssertionError("12 kernel Griffin-Lim iterations do not converge as the plain ones")
     del out, ref
-    ms = cuda_time_ms(lambda: gl.gl_fast_iterations(w0, mag, win, hop, 12, mom), reps=3)
+    run = lambda: gl.gl_fast_iterations(w0, mag, win, hop, 12, mom)  # noqa: E731
+    ms = cuda_time_ms(run, reps=3)
+    split, n_launch = _device_split_ms(run, GL_KERNELS)
     plain_ms = cuda_time_ms(
         lambda: gl.gl_fast_iterations_reference(w0, mag, win, hop, 12, mom), reps=1)
     # 12 forward DFT pairs and 11 inverse ones (the last iteration's frames
-    # are not needed), each pair 2 products of 2·F·n_fft·bins operations
+    # are not needed), each pair 2 products of 2·F·n_fft·bins operations;
+    # these frames are zero outside the window, so the work the data needs
+    # is each product over the window's nonzero samples; the full-frame
+    # bound beside it
     bins = n_fft // 2 + 1
-    bound = _bound_ms(_nbytes(w0, mag, win) + 4 * B * F * bins * 4,
-                      bf16_flops=(2 * 12 - 1) * 4 * B * F * n_fft * bins)
+    nnz = int((win != 0).sum())
+    io_bytes = _nbytes(w0, mag, win) + 4 * B * F * bins * 4
+    bound = _bound_ms(io_bytes, bf16_flops=(2 * 12 - 1) * 4 * B * F * nnz * bins)
+    bound_full = _bound_ms(io_bytes, bf16_flops=(2 * 12 - 1) * 4 * B * F * n_fft * bins)
+    # the default route (use_pallas=False): 12 bf16 iterations as cuBLAS
+    # products in the window-support layout, from the same magnitude
+    angles = torch.rand(mag.shape, generator=torch.Generator(device="cuda").manual_seed(53),
+                        device="cuda") * 2 * np.pi - np.pi
+    params = STFTParams(n_fft, hop, 1102)
+    magT = mag.transpose(1, 2)
+    cublas_ms = cuda_time_ms(lambda: griffin_lim(magT, params, 12, method="dft_bf16",
+                                                 momentum=0.99, angles=angles), reps=3)
     w1, m1, _ = _gl_case(1, F, seed=52)
     w1 = w1.to(torch.bfloat16)
-    ms1 = cuda_time_ms(lambda: gl.gl_fast_iterations(w1, m1, win, hop, 12, mom), reps=3)
+    run1 = lambda: gl.gl_fast_iterations(w1, m1, win, hop, 12, mom)  # noqa: E731
+    ms1 = cuda_time_ms(run1, reps=5)
+    split1, _ = _device_split_ms(run1, GL_KERNELS)
     log(f"[gl_iteration] B={B} F={F} n_fft={n_fft} hop={hop} 12 iterations bf16: kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}); B=1: "
-        f"kernel {ms1:.3f} ms")
+        f"{ms:.3f} ms (device: " + ", ".join(f"{s} {split[s]:.3f} x{n_launch[s]}"
+                                              for s in GL_KERNELS)
+        + f"), plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}, the window's "
+        f"{nnz} nonzero samples), full-frame bound {bound_full[0]:.4f} ms; cuBLAS route "
+        f"(griffin_lim dft_bf16, use_pallas=False, 12 iterations with its two overlap-adds) "
+        f"{cublas_ms:.3f} ms; B=1: kernel {ms1:.3f} ms (device: "
+        + ", ".join(f"{s} {split1[s]:.3f}" for s in GL_KERNELS) + ")")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1],
+            "bound_by": bound[1], "bound_full_frame_ms": bound_full[0],
+            "cublas_route_ms": cublas_ms, "ms_b1": ms1,
+            "device_ms": {s: split[s] for s in GL_KERNELS},
             "shape": f"B={B} F={F} n_fft={n_fft} hop={hop}, 12 iterations, bf16",
             "error": "max |kernel - plain| / max |plain| over sre/sim/pre/pim after 2 "
-                     "iterations on a broadband magnitude, f32 and bf16 (held by the share "
-                     "of elements past the limit and the norm-wise error); 12 iterations by "
-                     "spectral convergence"}
+                     "iterations on a broadband magnitude, f32 and bf16, three windows/frames "
+                     "(held by the share of elements past the limit and the norm-wise error); "
+                     "12 iterations by spectral convergence"}
 
 
 # --------------------------------------------------------------------------
@@ -2014,7 +2085,8 @@ LIBRARY_NULL = {
                               "(tanh) attention partial with its local max and sum",
     "overlap_add": "no one PyTorch call windows, overlap-adds and divides by the "
                    "window-square norm (torch.istft also runs the inverse FFT)",
-    "gl_iteration": "no one PyTorch call runs Griffin-Lim iterations",
+    "gl_iteration": "no one PyTorch call runs Griffin-Lim iterations (cublas_route_ms: the "
+                    "default route's several calls, for comparison)",
 }
 
 
@@ -2056,7 +2128,8 @@ def main() -> int:
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name].get("library_ms"),
          **({} if name not in LIBRARY_NULL else {"library_ms_null": LIBRARY_NULL[name]}),
-         **{k: v for k, v in kern[name].items() if k == "bound_all_taps_ms"},
+         **{k: v for k, v in kern[name].items()
+            if k in ("bound_all_taps_ms", "bound_full_frame_ms", "cublas_route_ms")},
          "shape": kern[name]["shape"]}
         for name, (src, replaces, path) in KERNEL_META.items()]}
     log(smi)

@@ -52,17 +52,17 @@ __global__ void __launch_bounds__(kern::Tile<T>::NT)
 gl_fwd_kernel(const T* __restrict__ wf, const T* __restrict__ cf, const float* __restrict__ mag,
               float* __restrict__ sre, float* __restrict__ sim, float* __restrict__ pre,
               float* __restrict__ pim, T* __restrict__ st, int G, int n_fft, int bins, int bp,
-              int ncol, float mom) {
+              int ncol, int k_lo, int k_hi, float mom) {
   using Tile = kern::Tile<T>;
   static_assert(Tile::BN == 2 * BIN_TILE, "re | im per tile");
   __shared__ typename Tile::Smem s;
   const int row0 = blockIdx.x * Tile::BM, c0 = blockIdx.y * Tile::BN;
   auto pa = [&](int r, int k) -> const T* {
     const int row = row0 + r;
-    return row < G ? wf + (size_t)row * n_fft + k : nullptr;
+    return row < G ? wf + (size_t)row * n_fft + k_lo + k : nullptr;
   };
-  auto pb = [&](int k, int c) -> const T* { return cf + (size_t)k * ncol + c0 + c; };
-  Tile::run(s, n_fft, pa, pb);
+  auto pb = [&](int k, int c) -> const T* { return cf + (size_t)(k_lo + k) * ncol + c0 + c; };
+  Tile::run(s, k_hi - k_lo, pa, pb);
   const float* C = Tile::out(s);
   // The epilogue is a stream of dependent device-memory reads (pre, pim,
   // mag) at the tile's low occupancy; one element at a time it took ~70%
@@ -108,24 +108,24 @@ gl_fwd_kernel(const T* __restrict__ wf, const T* __restrict__ cf, const float* _
 template <typename T>
 __global__ void __launch_bounds__(kern::Tile<T>::NT)
 gl_inv_kernel(const T* __restrict__ st, const T* __restrict__ ci, float* __restrict__ fr,
-              int G, int n_fft, int bp) {
+              int G, int n_fft, int bp, int lo, int hi) {
   using Tile = kern::Tile<T>;
   __shared__ typename Tile::Smem s;
-  const int row0 = blockIdx.x * Tile::BM, c0 = blockIdx.y * Tile::BN;
+  const int row0 = blockIdx.x * Tile::BM, c0 = lo + blockIdx.y * Tile::BN;
   auto pa = [&](int r, int k) -> const T* {
     const int row = row0 + r;
     return row < G ? st + (size_t)row * 2 * bp + k : nullptr;
   };
   auto pb = [&](int k, int c) -> const T* {
     const int col = c0 + c;
-    return col < n_fft ? ci + (size_t)k * n_fft + col : nullptr;
+    return col < hi ? ci + (size_t)k * n_fft + col : nullptr;
   };
   Tile::run(s, 2 * bp, pa, pb);
   const float* C = Tile::out(s);
   for (int i = threadIdx.x; i < Tile::BM * Tile::BN; i += Tile::NT) {
     const int r = i / Tile::BN, c = i % Tile::BN;
     const int row = row0 + r, col = c0 + c;
-    if (row < G && col < n_fft) fr[(size_t)row * n_fft + col] = C[r * Tile::LDC + c];
+    if (row < G && col < hi) fr[(size_t)row * n_fft + col] = C[r * Tile::LDC + c];
   }
 }
 
@@ -133,34 +133,37 @@ template <typename T>
 __global__ void __launch_bounds__(256)
 gl_ola_kernel(const float* __restrict__ fr, const float* __restrict__ nrm,
               const float* __restrict__ shift, T* __restrict__ wf, int B, int F, int n_fft,
-              int hop, int m) {
+              int hop, int m, int lo, int hi) {
+  const int W = hi - lo;
   const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (idx >= (long long)B * F * n_fft) return;
-  const int i = (int)(idx % n_fft);
-  const long long bg = idx / n_fft;
+  if (idx >= (long long)B * F * W) return;
+  const int i = lo + (int)(idx % W);
+  const long long bg = idx / W;
   const int g = (int)(bg % F);
   const float* frb = fr + (bg - g) * n_fft;       // batch row's first frame
   float acc = 0.f;
   for (int d = -(m - 1); d <= m - 1; ++d) {
+    // the source frame g - d in [0, F) and column i + d*hop in [lo, hi):
+    // the other terms are products with S_d[i] = win[i + d*hop] = 0
     const int gs = g - d, is = i + d * hop;
-    if (gs < 0 || gs >= F || is < 0 || is >= n_fft) continue;
+    if (gs < 0 || gs >= F || is < lo || is >= hi) continue;
     acc += frb[(size_t)gs * n_fft + is] * shift[(size_t)(d + m - 1) * n_fft + i];
   }
-  wf[idx] = kern::from_f<T>(acc * nrm[(size_t)g * n_fft + i]);
+  wf[bg * n_fft + i] = kern::from_f<T>(acc * nrm[(size_t)g * n_fft + i]);
 }
 
 template <typename T>
 int launch_all(void* wf, const void* mag, const void* fwd, const void* inv, const void* nrm,
                const void* shift, void* fr, void* st, void* sre, void* sim, void* pre,
-               void* pim, int B, int F, int n_fft, int hop, int n_iters, float mom,
-               cudaStream_t s) {
+               void* pim, int B, int F, int n_fft, int hop, int lo, int hi, int n_iters,
+               float mom, cudaStream_t s) {
   using Tile = kern::Tile<T>;
   const int G = B * F, bins = n_fft / 2 + 1, bp = (bins + 7) / 8 * 8;
   const int tiles = (bins + BIN_TILE - 1) / BIN_TILE, ncol = tiles * Tile::BN;
   const int m = (n_fft + hop - 1) / hop;
   const dim3 fwd_grid((G + Tile::BM - 1) / Tile::BM, tiles);
-  const dim3 inv_grid((G + Tile::BM - 1) / Tile::BM, (n_fft + Tile::BN - 1) / Tile::BN);
-  const long long n = (long long)G * n_fft;
+  const dim3 inv_grid((G + Tile::BM - 1) / Tile::BM, (hi - lo + Tile::BN - 1) / Tile::BN);
+  const long long n = (long long)G * (hi - lo);
   const unsigned ola_blocks = (unsigned)((n + 255) / 256);
   if (fwd_grid.y > 65535 || inv_grid.y > 65535) return int(cudaErrorInvalidValue);
   T* wft = static_cast<T*>(wf);
@@ -170,14 +173,15 @@ int launch_all(void* wf, const void* mag, const void* fwd, const void* inv, cons
     gl_fwd_kernel<T><<<fwd_grid, Tile::NT, 0, s>>>(
         wft, static_cast<const T*>(fwd), static_cast<const float*>(mag),
         static_cast<float*>(sre), static_cast<float*>(sim), static_cast<float*>(pre),
-        static_cast<float*>(pim), stt, G, n_fft, bins, bp, ncol, mom);
+        static_cast<float*>(pim), stt, G, n_fft, bins, bp, ncol, it ? lo : 0, it ? hi : n_fft,
+        mom);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || it + 1 == n_iters) return int(err);
     gl_inv_kernel<T><<<inv_grid, Tile::NT, 0, s>>>(stt, static_cast<const T*>(inv), frf, G,
-                                                   n_fft, bp);
+                                                   n_fft, bp, lo, hi);
     gl_ola_kernel<T><<<ola_blocks, 256, 0, s>>>(frf, static_cast<const float*>(nrm),
                                                 static_cast<const float*>(shift), wft, B, F,
-                                                n_fft, hop, m);
+                                                n_fft, hop, m, lo, hi);
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
   }
@@ -198,14 +202,14 @@ extern "C" {
 int gl_iterations_launch(void* wf, const void* mag, const void* fwd, const void* inv,
                          const void* nrm, const void* shift, void* fr, void* st, void* sre,
                          void* sim, void* pre, void* pim, int B, int F, int n_fft, int hop,
-                         int n_iters, float mom, int is_bf16, void* stream) {
+                         int lo, int hi, int n_iters, float mom, int is_bf16, void* stream) {
   if (B <= 0 || F <= 0 || n_iters <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_all<__nv_bfloat16>(wf, mag, fwd, inv, nrm, shift, fr, st, sre, sim, pre,
-                                     pim, B, F, n_fft, hop, n_iters, mom, s);
+                                     pim, B, F, n_fft, hop, lo, hi, n_iters, mom, s);
   return launch_all<float>(wf, mag, fwd, inv, nrm, shift, fr, st, sre, sim, pre, pim, B, F,
-                           n_fft, hop, n_iters, mom, s);
+                           n_fft, hop, lo, hi, n_iters, mom, s);
 }
 
 }  // extern "C"

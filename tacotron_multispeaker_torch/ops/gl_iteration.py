@@ -43,6 +43,7 @@ launches = 0
 
 _INT_MAX = 2**31 - 1
 _BIN_TILE = 32        # csrc/gl_iteration.cu: bins per forward output tile
+K_STEP = 64           # csrc/gl_iteration.cu: frame samples per k-block of a product
 
 
 @functools.lru_cache(maxsize=4)
@@ -77,11 +78,28 @@ def shift_coeffs(window: torch.Tensor, nF: int, hop: int):
     return N, torch.stack(rows)
 
 
+def window_support(window, step: int = K_STEP) -> tuple[int, int]:
+    """[lo, hi): the hull of the window's nonzero samples, rounded out to
+    multiples of ``step`` (hi clipped to n_fft).  From the second iteration
+    on the kernels compute only inside it: outside it N = win/norm makes the
+    frames 0 and S_d = win makes every OLA term 0, so each dropped term is a
+    product with an exact zero.  Raises for a window with no nonzero sample."""
+    win = np.asarray(window, dtype=np.float32)
+    nz = np.flatnonzero(win)
+    if nz.size == 0:
+        raise ValueError("gl_fast_iterations: the window has no nonzero sample")
+    lo = int(nz[0]) // step * step
+    hi = min(-(-(int(nz[-1]) + 1) // step) * step, win.shape[0])
+    return lo, hi
+
+
 @functools.lru_cache(maxsize=8)
 def _device_shift_coeffs(win_bytes: bytes, nF: int, hop: int, device: torch.device):
-    """:func:`shift_coeffs` on ``device``, built once per (window, F, hop)."""
-    win = torch.from_numpy(np.frombuffer(win_bytes, np.float32).copy()).to(device)
-    return tuple(t.contiguous() for t in shift_coeffs(win, nF, hop))
+    """:func:`shift_coeffs` on ``device`` and the window's support
+    (:func:`window_support`), built once per (window, F, hop)."""
+    win = np.frombuffer(win_bytes, np.float32).copy()
+    N, Sd = shift_coeffs(torch.from_numpy(win).to(device), nF, hop)
+    return N.contiguous(), Sd.contiguous(), window_support(win)
 
 
 def gl_fast_iterations_reference(wf0, magT, window, hop: int, n_iters: int, mom: float):
@@ -173,7 +191,7 @@ def gl_fast_iterations(wf0, magT, window, hop: int, n_iters: int, mom: float):
     dev = wf0.device
     fwd_mat, inv_mat = _device_matrices(n_fft, wf0.dtype, dev)
     win_bytes = window.detach().float().cpu().numpy().tobytes()
-    N, Sd = _device_shift_coeffs(win_bytes, nF, hop, dev)
+    N, Sd, (lo, hi) = _device_shift_coeffs(win_bytes, nF, hop, dev)
     wf = wf0.contiguous().clone()                       # updated in place
     mag = magT.float().contiguous()
     out = torch.empty((4, B, nF, bins), dtype=torch.float32, device=dev)
@@ -187,7 +205,7 @@ def gl_fast_iterations(wf0, magT, window, hop: int, n_iters: int, mom: float):
             wf.data_ptr(), mag.data_ptr(), fwd_mat.data_ptr(), inv_mat.data_ptr(),
             N.data_ptr(), Sd.data_ptr(), fr.data_ptr(), st.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
-            B, nF, n_fft, hop, n_iters, ctypes.c_float(mom),
+            B, nF, n_fft, hop, lo, hi, n_iters, ctypes.c_float(mom),
             int(wf0.dtype == torch.bfloat16), stream)
     cuda_build.check(err, "gl_iteration kernel launch")
     global launches
@@ -198,7 +216,7 @@ def gl_fast_iterations(wf0, magT, window, hop: int, n_iters: int, mom: float):
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("gl_iteration")
     if not getattr(lib, "_typed", False):
-        lib.gl_iterations_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+        lib.gl_iterations_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                                              + [ctypes.c_float, ctypes.c_int,
                                                 ctypes.c_void_p])
         lib.gl_iterations_launch.restype = ctypes.c_int

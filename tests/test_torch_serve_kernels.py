@@ -20,6 +20,7 @@ from tacotron_multispeaker_tpu.ops.conv_bank import conv_bank_pallas  # noqa: E4
 from tacotron_multispeaker_tpu.ops.gl_iteration import gl_fast_iterations_pallas  # noqa: E402
 from tacotron_multispeaker_tpu.ops.overlap_add import overlap_add_pallas  # noqa: E402
 from tacotron_multispeaker_tpu.models.modules import _bank_mask  # noqa: E402
+from tacotron_multispeaker_torch.audio.dsp import hann_window  # noqa: E402
 from tacotron_multispeaker_torch.models.modules import ConvBank  # noqa: E402
 from tacotron_multispeaker_torch.ops import attention_step as tas  # noqa: E402
 from tacotron_multispeaker_torch.ops import conv_bank as tcb  # noqa: E402
@@ -195,15 +196,100 @@ def test_gl_fast_iterations_plain_matches_pallas_interpret(F, n_fft, hop, n_iter
 
 
 def test_gl_shift_coeffs_are_built_once_per_geometry():
-    # the kernel's banded OLA coefficients, cached by the window's values:
-    # equal to shift_coeffs, and one entry for equal windows in new tensors
+    # the kernel's banded OLA coefficients and the window's support, cached
+    # by the window's values: equal to shift_coeffs and window_support, and
+    # one entry for equal windows in new tensors
     win = torch.from_numpy(gl_case(np.random.RandomState(7), 1, 1, 64)[2])
     tgl._device_shift_coeffs.cache_clear()
     for w in (win, win.clone()):
-        N, Sd = tgl._device_shift_coeffs(w.numpy().tobytes(), 9, 20, torch.device("cpu"))
+        N, Sd, support = tgl._device_shift_coeffs(w.numpy().tobytes(), 9, 20,
+                                                  torch.device("cpu"))
     assert tgl._device_shift_coeffs.cache_info().misses == 1
     for got, want in zip((N, Sd), tgl.shift_coeffs(win, 9, 20)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert support == tgl.window_support(win.numpy()) == (0, 64)
+
+
+def _interior_zeros(n=256):
+    w = np.hanning(n).astype(np.float32) + 0.05
+    w[:30], w[100:120], w[200:] = 0.0, 0.0, 0.0
+    return w
+
+
+@pytest.mark.parametrize("window,step,support", [
+    # the serving window: nonzero on [474, 1575) (the periodic Hann's first
+    # sample is exactly 0), rounded out to the kernels' 64-sample k-block
+    (hann_window(1102, 2048), tgl.K_STEP, (448, 1600)),
+    (hann_window(1102, 2048), 1, (474, 1575)),
+    # no zero: the whole frame
+    (np.hanning(2048).astype(np.float32) + 0.05, tgl.K_STEP, (0, 2048)),
+    # zeros inside the window do not split it: the hull of the nonzeros
+    (_interior_zeros(), 16, (16, 208)),
+    (_interior_zeros(), 1, (30, 200)),
+])
+def test_window_support_is_the_rounded_hull_of_the_nonzeros(window, step, support):
+    assert tgl.window_support(window, step) == support
+
+
+def test_window_support_of_an_all_zero_window_raises():
+    with pytest.raises(ValueError, match="no nonzero sample"):
+        tgl.window_support(np.zeros(256, np.float32))
+
+
+def _support_iterations(wf0, mag, win, hop, n_iters, mom, lo, hi):
+    """The fast iterations in f32 with the kernels' restriction: iteration 1's
+    forward product over the whole frame, later ones over [lo, hi); the
+    inverse product only for frame columns [lo, hi); the OLA only for
+    outputs in [lo, hi) from sources in [lo, hi), over increasing d."""
+    B, F, n_fft = wf0.shape
+    m = -(-n_fft // hop)
+    C, S, iC, iS = (torch.from_numpy(a).float() for a in tgl.dft_matrices(n_fft))
+    N, Sd = tgl.shift_coeffs(win, F, hop)
+    pre = pim = torch.zeros_like(mag)
+    wf = wf0
+    for it in range(n_iters):
+        k0, k1 = (0, n_fft) if it == 0 else (lo, hi)
+        f = wf[..., k0:k1]
+        re, im = f @ C[k0:k1], f @ S[k0:k1]
+        are, aim = re - mom * pre, im - mom * pim
+        pre, pim = re, im
+        scale = mag / torch.clamp(torch.sqrt(are * are + aim * aim), min=1e-8)
+        sre, sim = are * scale, aim * scale
+        fr = sre @ iC[:, lo:hi] + sim @ iS[:, lo:hi]          # frame columns [lo, hi)
+        acc = torch.zeros(B, F, hi - lo)
+        for d in range(-(m - 1), m):
+            # outputs i whose source i + d*hop lies in [lo, hi), frames g with
+            # g - d in [0, F)
+            i0, i1 = max(lo, lo - d * hop), min(hi, hi - d * hop)
+            g0, g1 = max(0, d), min(F, F + d)
+            if i0 < i1 and g0 < g1:
+                acc[:, g0:g1, i0 - lo:i1 - lo] += (
+                    fr[:, g0 - d:g1 - d, i0 + d * hop - lo:i1 + d * hop - lo]
+                    * Sd[d + m - 1, i0:i1])
+        wf = torch.zeros_like(wf0)
+        wf[..., lo:hi] = acc * N[:, lo:hi]
+    return sre, sim, pre, pim
+
+
+@pytest.mark.parametrize("step", [1, 16])
+def test_support_restriction_equals_the_full_frame_iterations(step):
+    # the kernels' support algebra: every term the restriction drops is a
+    # product with an exact zero (N and S_d vanish outside the window), so
+    # the restricted f32 iterations equal the full-frame reference up to the
+    # products' sum order; wf0 is nonzero everywhere, so iteration 1 must
+    # read the whole frame
+    n_fft, hop, F = 256, 64, 9
+    win = hann_window(150, n_fft)
+    lo, hi = tgl.window_support(win, step)
+    assert 0 < lo and hi < n_fft
+    rs = np.random.RandomState(21)
+    wf0 = torch.from_numpy(rs.randn(2, F, n_fft).astype(np.float32))
+    mag = torch.from_numpy(np.abs(rs.randn(2, F, n_fft // 2 + 1)).astype(np.float32))
+    w = torch.from_numpy(win)
+    got = _support_iterations(wf0, mag, w, hop, 3, 0.5, lo, hi)
+    want = tgl.gl_fast_iterations_reference(wf0, mag, w, hop, 3, 0.5)
+    for name, a, b in zip(("sre", "sim", "pre", "pim"), got, want):
+        assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item(), name
 
 
 def test_new_kernel_wrappers_check_their_inputs():
