@@ -91,11 +91,11 @@ __host__ __device__ __forceinline__ void col_taps(int o, int K, int C, int& lo, 
 
 // ---------------------------------------------------------------- f32 path
 
-__global__ void __launch_bounds__(kern::Tile<float>::NT)
+__global__ void __launch_bounds__(kern::TileF32::NT)
 conv_bank_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ bias, float* __restrict__ y,
                      int B, int Tn, int D, int K, int O, int C) {
-  using Tile = kern::Tile<float>;
+  using Tile = kern::TileF32;
   __shared__ Tile::Smem s;
   const int M = B * Tn;
   // the widest groups (the last column tiles) first
@@ -140,26 +140,6 @@ struct Geometry {
   int nch;     // k-blocks of a tap
   int stages;
 };
-
-// KS 16-channel steps of one k-block for a consumer warpgroup.  a: the
-// stage's A tile at the warpgroup's first row, K-major rows of AW channels
-// (AW * 2 bytes, 8-row groups 8 * AW * 2 bytes apart; a 64-channel box holds
-// four steps 32 bytes apart, a 16-channel box one, the boxes BM rows
-// apart).  bt: the B tile, N-major 128-byte rows of 64 columns, one per
-// channel, 8-channel groups 1024 bytes apart, the second 64-column box
-// b_lbo bytes on.
-template <int KS, int AW, int BM>
-__device__ __forceinline__ void kblock(float (&acc)[64], const unsigned char* a,
-                                       const unsigned char* bt, uint32_t b_lbo) {
-  constexpr sm90::Swizzle a_swz = AW == 64 ? sm90::kSwizzle128B : sm90::kSwizzle32B;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const unsigned char* pa = a + (ks / (AW / 16)) * BM * AW * 2 + (ks % (AW / 16)) * 32;
-    const uint64_t da = sm90::smem_desc(pa, 16, 8 * AW * 2, a_swz);
-    const uint64_t db = sm90::smem_desc(bt + ks * 16 * 128, b_lbo, 1024, sm90::kSwizzle128B);
-    sm90::wgmma_m64n128k16(acc, da, db);
-  }
-}
 
 template <int NWG, int AW>
 __global__ void __launch_bounds__(NWG * 128 + 32, NWG == 2 ? 2 : 1)
@@ -231,17 +211,17 @@ conv_bank_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
     sm90::wgmma_fence();
     // the k-block's 16-channel steps, unrolled (4 wide, DC/16 narrow)
     if constexpr (AW == 64) {
-      kblock<4, AW, BM>(acc, a, bt, b_lbo);
+      sm90::kblock<4, AW, BM>(acc, a, bt, b_lbo);
     } else {
       switch (nks) {
-        case 1: kblock<1, AW, BM>(acc, a, bt, b_lbo); break;
-        case 2: kblock<2, AW, BM>(acc, a, bt, b_lbo); break;
-        case 3: kblock<3, AW, BM>(acc, a, bt, b_lbo); break;
-        case 4: kblock<4, AW, BM>(acc, a, bt, b_lbo); break;
-        case 5: kblock<5, AW, BM>(acc, a, bt, b_lbo); break;
-        case 6: kblock<6, AW, BM>(acc, a, bt, b_lbo); break;
-        case 7: kblock<7, AW, BM>(acc, a, bt, b_lbo); break;
-        default: kblock<8, AW, BM>(acc, a, bt, b_lbo); break;
+        case 1: sm90::kblock<1, AW, BM>(acc, a, bt, b_lbo); break;
+        case 2: sm90::kblock<2, AW, BM>(acc, a, bt, b_lbo); break;
+        case 3: sm90::kblock<3, AW, BM>(acc, a, bt, b_lbo); break;
+        case 4: sm90::kblock<4, AW, BM>(acc, a, bt, b_lbo); break;
+        case 5: sm90::kblock<5, AW, BM>(acc, a, bt, b_lbo); break;
+        case 6: sm90::kblock<6, AW, BM>(acc, a, bt, b_lbo); break;
+        case 7: sm90::kblock<7, AW, BM>(acc, a, bt, b_lbo); break;
+        default: sm90::kblock<8, AW, BM>(acc, a, bt, b_lbo); break;
       }
     }
     sm90::wgmma_commit();
@@ -274,40 +254,6 @@ conv_bank_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
       *reinterpret_cast<uint4*>(y + ((size_t)b * g.T + t) * g.O + o) =
           *reinterpret_cast<const uint4*>(st + r * LDS + c);
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call: fetched through the runtime,
-// so the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 3-D bf16 tensor map over a contiguous [d2, d1, d0] array, boxes of
-// [1, b1, b0] elements
-bool make_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-              uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
-  EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {b0, b1, 1}, estr[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The bf16 launch's shape: warpgroups, row tiles, stages; the dynamic
@@ -343,9 +289,9 @@ int launch_bf16(const void* x, const void* w, const void* bias, void* y, Geometr
   const int smem = plan(g, NWG);
   if (smem < 0) return int(cudaErrorInvalidValue);
   CUtensorMap xmap, wmap;
-  if (!make_map(&xmap, x, g.D, g.T, g.B, AW, 64 * NWG,
+  if (!sm90::make_map(&xmap, x, g.D, g.T, g.B, AW, 64 * NWG,
                 AW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B) ||
-      !make_map(&wmap, w, g.O, g.D, g.K, 64, g.dc, CU_TENSOR_MAP_SWIZZLE_128B))
+      !sm90::make_map(&wmap, w, g.O, g.D, g.K, 64, g.dc, CU_TENSOR_MAP_SWIZZLE_128B))
     return int(cudaErrorInvalidValue);
   auto kernel = conv_bank_bf16_kernel<NWG, AW>;
   static bool configured = false;   // once per instantiation: allow 227 KB
@@ -364,7 +310,7 @@ int launch_bf16(const void* x, const void* w, const void* bias, void* y, Geometr
 
 int launch_f32(const void* x, const void* w, const void* bias, void* y, int B, int T, int D,
                int K, int O, int C, cudaStream_t s) {
-  using Tile = kern::Tile<float>;
+  using Tile = kern::TileF32;
   const long long rows = (long long)B * T;
   const long long blocks = ((rows + Tile::BM - 1) / Tile::BM) * ((O + Tile::BN - 1) / Tile::BN);
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);

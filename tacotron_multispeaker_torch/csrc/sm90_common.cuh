@@ -17,8 +17,12 @@
 //   warpgroup, A K-major, B N-major (wgmma's transpose bit for B).
 //   Thread t of the warpgroup holds d[i] = D[16 (t/32) + (t%32)/4 + 8 ((i/2)%2),
 //   8 (i/4) + 2 (t%4) + i%2].
+// * kblock: KS 16-deep wgmma steps over one stage of a TMA ring (A K-major,
+//   B N-major as two 64-column boxes with 128-byte swizzle).
+// * Host side: make_map, a 3-D bf16 TMA tensor map (cuTensorMapEncodeTiled,
+//   fetched through the runtime, so a library needs no -lcuda).
 //
-// Only csrc/conv_bank.cu includes it.
+// csrc/conv_bank.cu and csrc/gl_iteration.cu include it (their bf16 paths).
 
 #pragma once
 
@@ -118,6 +122,61 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// KS 16-deep steps of one k-block for a consumer warpgroup.  a: the stage's
+// A tile at the warpgroup's first row, K-major rows of AW elements (AW * 2
+// bytes, 8-row groups 8 * AW * 2 bytes apart; a 64-wide box holds four steps
+// 32 bytes apart, a 16-wide box one, the boxes BM rows apart).  bt: the B
+// tile, N-major 128-byte rows of 64 columns, one per k, 8-row groups 1024
+// bytes apart, the second 64-column box b_lbo bytes on.
+template <int KS, int AW, int BM>
+__device__ __forceinline__ void kblock(float (&acc)[64], const unsigned char* a,
+                                       const unsigned char* bt, uint32_t b_lbo) {
+  constexpr Swizzle a_swz = AW == 64 ? kSwizzle128B : kSwizzle32B;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const unsigned char* pa = a + (ks / (AW / 16)) * BM * AW * 2 + (ks % (AW / 16)) * 32;
+    const uint64_t da = smem_desc(pa, 16, 8 * AW * 2, a_swz);
+    const uint64_t db = smem_desc(bt + ks * 16 * 128, b_lbo, 1024, kSwizzle128B);
+    wgmma_m64n128k16(acc, da, db);
+  }
+}
+
+// ------------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call: fetched through the runtime,
+// so the library needs no -lcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 3-D bf16 tensor map over a contiguous [d2, d1, d0] array, boxes of
+// [1, b1, b0] elements; elements outside the array arrive as zeros
+inline bool make_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                     uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {b0, b1, 1}, estr[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

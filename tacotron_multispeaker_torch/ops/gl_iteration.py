@@ -42,8 +42,8 @@ from .overlap_add import _wsq_norm
 launches = 0
 
 _INT_MAX = 2**31 - 1
-_BIN_TILE = 32        # csrc/gl_iteration.cu: bins per forward output tile
 K_STEP = 64           # csrc/gl_iteration.cu: frame samples per k-block of a product
+_COL_TILE = 128       # csrc/gl_iteration.cu: forward columns (64 bins) per bf16 tile
 
 
 @functools.lru_cache(maxsize=4)
@@ -135,28 +135,33 @@ def gl_fast_iterations_reference(wf0, magT, window, hop: int, n_iters: int, mom:
     return sre, sim, pre, pim
 
 
-def _padded_bins(n_fft: int) -> int:
-    return -(-(n_fft // 2 + 1) // 8) * 8
+def _spectrum_width(n_fft: int) -> int:
+    """KI: the interleaved (re, im) spectrum's row length, 2·bins rounded up
+    to 8 (16-byte rows)."""
+    return -(-2 * (n_fft // 2 + 1) // 8) * 8
+
+
+def _kernel_matrices(n_fft: int):
+    """The kernels' DFT operands, float64 numpy: the forward matrix [n_fft,
+    ncol] with the cosine of bin j in column 2j and its sine in 2j+1 (ncol =
+    2·bins rounded up to 128, zero columns past them), and the inverse [KI,
+    n_fft] with iC[j] in row 2j and iS[j] in row 2j+1 (zero rows at the
+    pads)."""
+    C, S, iC, iS = dft_matrices(n_fft)
+    bins = C.shape[1]
+    ncol = -(-2 * bins // _COL_TILE) * _COL_TILE
+    fwd = np.zeros((n_fft, ncol))
+    fwd[:, 0:2 * bins:2], fwd[:, 1:2 * bins:2] = C, S
+    inv = np.zeros((_spectrum_width(n_fft), n_fft))
+    inv[0:2 * bins:2], inv[1:2 * bins:2] = iC, iS
+    return fwd, inv
 
 
 @functools.lru_cache(maxsize=8)
 def _device_matrices(n_fft: int, dtype: torch.dtype, device: torch.device):
-    """The kernels' DFT operands on ``device`` in ``dtype``: the forward
-    matrix [n_fft, tiles·64] with each 64-column tile holding the cosine
-    columns of 32 bins then their sine columns (so that one output tile has
-    re and im of the same bins), and the inverse [iC; 0; iS; 0] [2·bp, n_fft]
-    with bins padded to bp, a multiple of 8 (16-byte rows)."""
-    C, S, iC, iS = dft_matrices(n_fft)
-    bins = C.shape[1]
-    tiles = -(-bins // _BIN_TILE)
-    pad = tiles * _BIN_TILE - bins
-    Cp = np.pad(C, ((0, 0), (0, pad))).reshape(n_fft, tiles, 1, _BIN_TILE)
-    Sp = np.pad(S, ((0, 0), (0, pad))).reshape(n_fft, tiles, 1, _BIN_TILE)
-    fwd = np.concatenate([Cp, Sp], axis=2).reshape(n_fft, tiles * 2 * _BIN_TILE)
-    rows = ((0, _padded_bins(n_fft) - bins), (0, 0))
-    inv = np.concatenate([np.pad(iC, rows), np.pad(iS, rows)], axis=0)
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
-    return to(fwd), to(inv)
+    """:func:`_kernel_matrices` on ``device`` in ``dtype``, built once."""
+    return tuple(torch.from_numpy(a).to(device=device, dtype=dtype)
+                 for a in _kernel_matrices(n_fft))
 
 
 def gl_fast_iterations(wf0, magT, window, hop: int, n_iters: int, mom: float):
@@ -184,8 +189,8 @@ def gl_fast_iterations(wf0, magT, window, hop: int, n_iters: int, mom: float):
         return gl_fast_iterations_reference(wf0, magT, window, hop, n_iters, mom)
     if wf0.device.type != "cuda":
         raise ValueError(f"gl_fast_iterations runs on cpu or cuda, not {wf0.device}")
-    G, bp = B * nF, _padded_bins(n_fft)
-    if n_fft % 8 or G * max(n_fft, 2 * bp) > _INT_MAX:
+    G, KI = B * nF, _spectrum_width(n_fft)
+    if n_fft % 8 or G * max(n_fft, KI) > _INT_MAX:
         raise ValueError(f"gl_fast_iterations kernel: n_fft={n_fft} must be a multiple of "
                          f"8 (16-byte rows) and B*F*n_fft={G * n_fft} below 2^31")
     dev = wf0.device
@@ -194,16 +199,19 @@ def gl_fast_iterations(wf0, magT, window, hop: int, n_iters: int, mom: float):
     N, Sd, (lo, hi) = _device_shift_coeffs(win_bytes, nF, hop, dev)
     wf = wf0.contiguous().clone()                       # updated in place
     mag = magT.float().contiguous()
+    if wf.data_ptr() % 16:
+        raise ValueError("gl_fast_iterations kernel: the frames must be 16-byte aligned")
     out = torch.empty((4, B, nF, bins), dtype=torch.float32, device=dev)
-    out[2:].zero_()                                     # pre, pim start at 0
     fr = torch.empty((B, nF, n_fft), dtype=torch.float32, device=dev)
-    st = torch.zeros((B, nF, 2 * bp), dtype=wf0.dtype, device=dev)   # pads stay 0
+    state = torch.empty((B, nF, bins, 2), dtype=torch.float32, device=dev)
+    st = torch.empty((B, nF, KI), dtype=wf0.dtype, device=dev)
+    st[..., 2 * bins:].zero_()                          # pads: zero rows of inv
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gl_iterations_launch(
             wf.data_ptr(), mag.data_ptr(), fwd_mat.data_ptr(), inv_mat.data_ptr(),
-            N.data_ptr(), Sd.data_ptr(), fr.data_ptr(), st.data_ptr(),
+            N.data_ptr(), Sd.data_ptr(), fr.data_ptr(), st.data_ptr(), state.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
             B, nF, n_fft, hop, lo, hi, n_iters, ctypes.c_float(mom),
             int(wf0.dtype == torch.bfloat16), stream)
@@ -213,12 +221,26 @@ def gl_fast_iterations(wf0, magT, window, hop: int, n_iters: int, mom: float):
     return out[0], out[1], out[2], out[3]
 
 
+def bf16_plan(window) -> dict:
+    """The bf16 launch: the product tile (rows x columns x k-block depth),
+    consumer warpgroups, ring stages, dynamic shared memory bytes a block,
+    and the window's support [lo, hi) (:func:`window_support`)."""
+    out = (ctypes.c_int * 6)()
+    _lib().gl_iterations_plan(out)
+    win = window.detach().float().cpu().numpy() if torch.is_tensor(window) else window
+    return {"tile": f"wgmma m64n128k16, {out[0]} x {out[1]} x {out[2]}",
+            "warpgroups": out[3], "stages": out[4], "smem_bytes": out[5],
+            "support": window_support(win)}
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("gl_iteration")
     if not getattr(lib, "_typed", False):
-        lib.gl_iterations_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+        lib.gl_iterations_launch.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                                              + [ctypes.c_float, ctypes.c_int,
                                                 ctypes.c_void_p])
         lib.gl_iterations_launch.restype = ctypes.c_int
+        lib.gl_iterations_plan.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.gl_iterations_plan.restype = None
         lib._typed = True
     return lib

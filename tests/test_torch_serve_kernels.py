@@ -292,6 +292,27 @@ def test_support_restriction_equals_the_full_frame_iterations(step):
         assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item(), name
 
 
+@pytest.mark.parametrize("n_fft", [64, 200, 2048])
+def test_kernel_dft_matrices_interleave_the_dft(n_fft):
+    # the kernels' operands hold dft_matrices' C, S, iC, iS exactly: the
+    # cosine and sine of bin j in forward columns 2j, 2j+1 (zero columns up
+    # to a multiple of the 128-column tile), iC[j] and iS[j] in inverse rows
+    # 2j, 2j+1 (zero rows up to a multiple of 8)
+    C, S, iC, iS = tgl.dft_matrices(n_fft)
+    bins = n_fft // 2 + 1
+    fwd, inv = tgl._kernel_matrices(n_fft)
+    assert fwd.shape == (n_fft, -(-2 * bins // 128) * 128)
+    assert inv.shape == (-(-2 * bins // 8) * 8, n_fft)
+    np.testing.assert_array_equal(fwd[:, 0:2 * bins:2], C)
+    np.testing.assert_array_equal(fwd[:, 1:2 * bins:2], S)
+    np.testing.assert_array_equal(inv[0:2 * bins:2], iC)
+    np.testing.assert_array_equal(inv[1:2 * bins:2], iS)
+    assert not fwd[:, 2 * bins:].any() and not inv[2 * bins:].any()
+    for got, want in zip(tgl._device_matrices(n_fft, torch.float64, torch.device("cpu")),
+                         (fwd, inv)):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_new_kernel_wrappers_check_their_inputs():
     rs = np.random.RandomState(6)
     x, w, b = map(torch.from_numpy, conv_bank_case(rs, 1, 5, 4, 3, 2))
