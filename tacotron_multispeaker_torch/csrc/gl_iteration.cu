@@ -141,27 +141,45 @@ __device__ __forceinline__ void project(const Proj& o, const int (&row)[N], cons
   }
 }
 
+// One thread: output column i in [lo, hi) of OLA_FG consecutive frames of
+// one batch row.  The coefficients S[d, i] are read once for the group; for
+// each d (increasing) every frame's sum takes its term, so each output sums
+// in the order of increasing d.
+constexpr int OLA_FG = 8;
+
 template <typename T>
 __global__ void __launch_bounds__(256)
 gl_ola_kernel(const float* __restrict__ fr, const float* __restrict__ nrm,
               const float* __restrict__ shift, T* __restrict__ wf, int B, int F, int n_fft,
               int hop, int m, int lo, int hi) {
-  const int W = hi - lo;
+  const int W = hi - lo, n_groups = (F + OLA_FG - 1) / OLA_FG;
   const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (idx >= (long long)B * F * W) return;
+  if (idx >= (long long)B * n_groups * W) return;
   const int i = lo + (int)(idx % W);
-  const long long bg = idx / W;
-  const int g = (int)(bg % F);
-  const float* frb = fr + (bg - g) * n_fft;       // batch row's first frame
-  float acc = 0.f;
+  const long long bq = idx / W;
+  const int g0 = (int)(bq % n_groups) * OLA_FG;
+  const long long row0 = bq / n_groups * F;       // the batch row's first frame
+  float acc[OLA_FG];
+#pragma unroll
+  for (int u = 0; u < OLA_FG; ++u) acc[u] = 0.f;
   for (int d = -(m - 1); d <= m - 1; ++d) {
-    // the source frame g - d in [0, F) and column i + d*hop in [lo, hi):
-    // the other terms are products with S_d[i] = win[i + d*hop] = 0
-    const int gs = g - d, is = i + d * hop;
-    if (gs < 0 || gs >= F || is < lo || is >= hi) continue;
-    acc += frb[(size_t)gs * n_fft + is] * shift[(size_t)(d + m - 1) * n_fft + i];
+    // the source column i + d*hop in [lo, hi) and frame g - d in [0, F):
+    // the other terms are products with S[d, i] = win[i + d*hop] = 0
+    const int is = i + d * hop;
+    if (is < lo || is >= hi) continue;
+    const float sd = shift[(size_t)(d + m - 1) * n_fft + i];
+#pragma unroll
+    for (int u = 0; u < OLA_FG; ++u) {
+      const int gs = g0 + u - d;
+      if (gs >= 0 && gs < F) acc[u] += fr[(size_t)(row0 + gs) * n_fft + is] * sd;
+    }
   }
-  wf[bg * n_fft + i] = kern::from_f<T>(acc * nrm[(size_t)g * n_fft + i]);
+#pragma unroll
+  for (int u = 0; u < OLA_FG; ++u) {
+    const int g = g0 + u;
+    if (g < F)
+      wf[(size_t)(row0 + g) * n_fft + i] = kern::from_f<T>(acc[u] * nrm[(size_t)g * n_fft + i]);
+  }
 }
 
 // ---------------------------------------------------------------- f32 path
@@ -403,7 +421,7 @@ Proj proj(const Buffers& b, const Geo& g, float mom, int it, int n_iters) {
 
 template <typename T>
 int launch_ola(const Buffers& b, const Geo& g, cudaStream_t s) {
-  const long long n = (long long)g.G * (g.hi - g.lo);
+  const long long n = (long long)g.B * ((g.F + OLA_FG - 1) / OLA_FG) * (g.hi - g.lo);
   gl_ola_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(b.fr), static_cast<const float*>(b.nrm),
       static_cast<const float*>(b.shift), static_cast<T*>(b.wf), g.B, g.F, g.n_fft, g.hop, g.m,
