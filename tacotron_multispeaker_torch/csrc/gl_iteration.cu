@@ -53,18 +53,26 @@
 //   boxes read with wgmma's transpose bit.  Zero fill of the tensor maps
 //   covers the ragged G and K.  Blocks walk the column tiles of one row
 //   tile in turn, so A comes from device memory once and the B matrix
-//   (4.7-8.9 MB) stays in L2.  The forward epilogue runs from the
-//   accumulator registers (each thread holds re and im of 2 frames x 16
-//   bins): 4 (frame, bin) pairs' state and magnitude reads are issued
-//   before any is used, the state is one 8-byte access, st one 4-byte
-//   store a pair.  bins = 1025 gives 17 column tiles; the 17th carries one
-//   bin (a full-width tile: 6 % of the forward products, kept for one code
-//   path).  The inverse epilogue stages the f32 tile in the ring and
-//   stores whole 16-byte pieces of fr rows.
+//   (4.7-8.9 MB) stays in L2.  Both epilogues stage the f32 tile in the
+//   ring (free after the last product).  The forward one then projects
+//   with consecutive threads on consecutive bins of a frame: the state
+//   (one 8-byte access a pair), magnitude and st (one 4-byte store a pair)
+//   accesses are coalesced, and each thread issues 16 pairs' reads before
+//   it uses any.  Projecting straight from the accumulator registers (each
+//   thread holds re and im of 2 frames x 16 bins) left 8 rows x 32 bytes a
+//   warp access and, at the 96-register limit of two blocks an SM, 4 pairs
+//   in flight: 9.8 ms against 7.0 ms for the 12 forward launches at B=32
+//   (measured on an H100).  The inverse epilogue stores whole 16-byte
+//   pieces of fr rows.  bins = 1025 gives 17 column tiles; the 17th carries
+//   one bin (a full-width tile: 6 % of the forward products, kept for one
+//   code path).
 // * f32 (the check path): the same three steps and layouts on the FMA tile
 //   of mma_common.cuh (64 x 64, CUDA cores) with the same support ranges.
 // The banded pass reads fr from L2 (15 shifts at n_fft 2048, hop 275, at
-// most 9 of them inside the serving window's support).
+// most 5 of them inside the serving window's support for an output).  A
+// thread sums one output column for 8 frames and reads each coefficient
+// S[d, i] once for them (11 launches at B=32: 2.1 ms, against 5.6 ms with
+// one output a thread).
 //
 // Bound on this card, per launch at B=32, F=1000, n_fft 2048 (bins 1025,
 // support 1152 samples, 989 TFLOP/s bf16, 3.35 TB/s): a forward product
@@ -106,37 +114,41 @@ template <> __device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloa
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// The projection of N (frame, bin) pairs of the forward product.  The
-// state and magnitude reads of all N are issued before any is used: one
-// pair at a time, the epilogue waits on device memory N times.
-template <typename T, int N>
-__device__ __forceinline__ void project(const Proj& o, const int (&row)[N], const int (&bin)[N],
-                                        const float (&re)[N], const float (&im)[N]) {
+// The projection of N (frame, bin) pairs of the forward product: pos(u)
+// gives pair u's (frame, bin), val(u) its (re, im).  The state and
+// magnitude reads of all N are issued before any is used: one pair at a
+// time, the epilogue would wait on device memory N times.  pos is called
+// again for the stores rather than keeping N indices live.
+template <typename T, int N, class Pos, class Val>
+__device__ __forceinline__ void project(const Proj& o, Pos pos, Val val) {
   float2 p[N];
   float mg[N];
 #pragma unroll
   for (int u = 0; u < N; ++u) {
-    const bool ok = row[u] < o.G && bin[u] < o.bins;
-    const size_t i = (size_t)row[u] * o.bins + bin[u];
+    const int2 rb = pos(u);
+    const bool ok = rb.x < o.G && rb.y < o.bins;
+    const size_t i = (size_t)rb.x * o.bins + rb.y;
     p[u] = ok && !o.first ? o.state[i] : make_float2(0.f, 0.f);
     mg[u] = ok ? o.mag[i] : 0.f;
   }
 #pragma unroll
   for (int u = 0; u < N; ++u) {
-    if (row[u] >= o.G || bin[u] >= o.bins) continue;
-    const size_t i = (size_t)row[u] * o.bins + bin[u];
-    const float are = re[u] - o.mom * p[u].x;
-    const float aim = im[u] - o.mom * p[u].y;
+    const int2 rb = pos(u);
+    if (rb.x >= o.G || rb.y >= o.bins) continue;
+    const size_t i = (size_t)rb.x * o.bins + rb.y;
+    const float2 v = val(u);
+    const float are = v.x - o.mom * p[u].x;
+    const float aim = v.y - o.mom * p[u].y;
     const float scale = mg[u] / fmaxf(sqrtf(are * are + aim * aim), 1e-8f);
     const float xr = are * scale, xi = aim * scale;
     if (o.last) {
       o.sre[i] = xr;
       o.sim[i] = xi;
-      o.pre[i] = re[u];
-      o.pim[i] = im[u];
+      o.pre[i] = v.x;
+      o.pim[i] = v.y;
     } else {
-      o.state[i] = make_float2(re[u], im[u]);
-      store_pair(static_cast<T*>(o.st) + (size_t)row[u] * o.KI + 2 * bin[u], xr, xi);
+      o.state[i] = v;
+      store_pair(static_cast<T*>(o.st) + (size_t)rb.x * o.KI + 2 * rb.y, xr, xi);
     }
   }
 }
@@ -202,17 +214,16 @@ gl_fwd_f32_kernel(const float* __restrict__ wf, const float* __restrict__ cf, co
   constexpr int HB = FTile::BN / 2, EPI = 8, PER = FTile::BM * HB / FTile::NT;
   static_assert(PER % EPI == 0, "epilogue batches");
   for (int e0 = 0; e0 < PER; e0 += EPI) {
-    int row[EPI], bin[EPI];
-    float re[EPI], im[EPI];
-#pragma unroll
-    for (int u = 0; u < EPI; ++u) {
-      const int i = threadIdx.x + (e0 + u) * FTile::NT, r = i / HB, j = i % HB;
-      row[u] = row0 + r;
-      bin[u] = blockIdx.y * HB + j;
-      re[u] = C[r * FTile::LDC + 2 * j];
-      im[u] = C[r * FTile::LDC + 2 * j + 1];
-    }
-    project<float, EPI>(o, row, bin, re, im);
+    const int i0 = threadIdx.x + e0 * FTile::NT;
+    auto pos = [&](int u) {
+      const int i = i0 + u * FTile::NT;
+      return make_int2(row0 + i / HB, blockIdx.y * HB + i % HB);
+    };
+    auto val = [&](int u) {
+      const int i = i0 + u * FTile::NT, r = i / HB, j = i % HB;
+      return make_float2(C[r * FTile::LDC + 2 * j], C[r * FTile::LDC + 2 * j + 1]);
+    };
+    project<float, EPI>(o, pos, val);
   }
 }
 
@@ -318,6 +329,18 @@ __device__ __forceinline__ bool tile_product(unsigned char* smem, const CUtensor
   return true;
 }
 
+// a consumer warpgroup's 64 x 128 f32 sums into the staged tile (rows of
+// LDS floats; 8-byte stores, two wavefronts a warp)
+__device__ __forceinline__ void stage_tile(float* stg, const float (&acc)[64]) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int r0 = (threadIdx.x / 128) * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = r0 + 8 * ((i / 2) % 2), c = 8 * (i / 4) + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(stg + r * LDS + c) = make_float2(acc[i], acc[i + 1]);
+  }
+}
+
 __device__ __forceinline__ unsigned char* aligned_smem() {
   extern __shared__ unsigned char smem_raw[];
   // swizzled TMA tiles need 1024-byte aligned stages
@@ -336,25 +359,27 @@ gl_fwd_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
   float acc[64];
   if (!tile_product(smem, &wmap, &fmap, row0, k_lo, n_tile * BN, k_lo, nkb, last_ks, acc))
     return;
-  // d[4k + 2h] and d[4k + 2h + 1] are re and im of frame r + 8h, bin b + 4k
-  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  const int r = row0 + (threadIdx.x / 128) * 64 + warp * 16 + lane / 4;
-  const int b = n_tile * (BN / 2) + lane % 4;
-  // 4 pairs a batch: with 8 the 64 accumulators and the batch's reads
-  // spill at the two-blocks-an-SM register limit
-#pragma unroll
-  for (int k0 = 0; k0 < 16; k0 += 2) {
-    int row[4], bin[4];
-    float re[4], im[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int k = k0 + u / 2, h = u % 2;
-      row[u] = r + 8 * h;
-      bin[u] = b + 4 * k;
-      re[u] = acc[4 * k + 2 * h];
-      im[u] = acc[4 * k + 2 * h + 1];
-    }
-    project<__nv_bfloat16, 4>(o, row, bin, re, im);
+  // (re, im) through the ring (free once every consumer is past its last
+  // product), then the projection with consecutive threads on consecutive
+  // bins of a frame: coalesced state, magnitude and st accesses, and 8
+  // pairs' reads in flight a thread
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
+  float* stg = reinterpret_cast<float*>(smem);
+  stage_tile(stg, acc);
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
+  constexpr int HB = BN / 2, EPI = 16, PER = BM * HB / (NWG * 128);
+#pragma unroll 1
+  for (int e0 = 0; e0 < PER; e0 += EPI) {
+    const int i0 = threadIdx.x + e0 * (NWG * 128);
+    auto pos = [&](int u) {
+      const int i = i0 + u * (NWG * 128);
+      return make_int2(row0 + i / HB, n_tile * HB + i % HB);
+    };
+    auto val = [&](int u) {
+      const int i = i0 + u * (NWG * 128);
+      return *reinterpret_cast<const float2*>(stg + (i / HB) * LDS + 2 * (i % HB));
+    };
+    project<__nv_bfloat16, EPI>(o, pos, val);
   }
 }
 
@@ -371,13 +396,7 @@ gl_inv_bf16_kernel(const __grid_constant__ CUtensorMap smap,
   // every consumer is past its last product before the ring is reused
   asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
   float* stg = reinterpret_cast<float*>(smem);
-  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  const int r0 = (threadIdx.x / 128) * 64 + warp * 16 + lane / 4;
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int r = r0 + 8 * ((i / 2) % 2), c = 8 * (i / 4) + 2 * (lane % 4);
-    *reinterpret_cast<float2*>(stg + r * LDS + c) = make_float2(acc[i], acc[i + 1]);
-  }
+  stage_tile(stg, acc);
   asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
   for (int i = threadIdx.x; i < BM * (BN / 4); i += NWG * 128) {
     const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
