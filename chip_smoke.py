@@ -1250,8 +1250,7 @@ def phase_gl_iteration():
         + ", ".join(f"{s} {split1[s]:.3f}" for s in GL_KERNELS) + ")")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "bound_full_frame_ms": bound_full[0],
-            "cublas_route_ms": cublas_ms, "ms_b1": ms1,
-            "device_ms": {s: split[s] for s in GL_KERNELS},
+            "cublas_route_ms": cublas_ms,
             "shape": f"B={B} F={F} n_fft={n_fft} hop={hop}, 12 iterations, bf16",
             "error": "max |kernel - plain| / max |plain| over sre/sim/pre/pim after 2 "
                      "iterations on a broadband magnitude, f32 and bf16, three windows/frames "

@@ -255,15 +255,11 @@ gl_inv_f32_kernel(const float* __restrict__ st, const float* __restrict__ ci,
 constexpr int BM = 128, BN = 128, BK = 64, NWG = BM / 64;
 constexpr int NTHREADS = NWG * 128 + 32;         // consumers + one producer warp
 constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2, STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int LDS = BN + 8;                      // staged f32 fr row (floats)
+constexpr int LDS = BN + 8;                      // a staged f32 tile row (floats)
 constexpr int SMEM_BUDGET = 115712;              // two blocks an SM
 constexpr int SMEM_FIXED = 1024 + 16 * 8;        // alignment slack, barriers
 
-constexpr int ring_stages() {
-  return (SMEM_BUDGET - SMEM_FIXED) / STAGE_BYTES < 8 ? (SMEM_BUDGET - SMEM_FIXED) / STAGE_BYTES
-                                                      : 8;
-}
-constexpr int STAGES = ring_stages();
+constexpr int STAGES = (SMEM_BUDGET - SMEM_FIXED) / STAGE_BYTES;
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 static_assert(STAGES >= 2 && STAGES * STAGE_BYTES >= BM * LDS * 4, "ring");
 

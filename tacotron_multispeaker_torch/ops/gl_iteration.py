@@ -23,8 +23,11 @@ of the last iteration and the last raw estimate (the momentum state).
 :func:`gl_fast_iterations` runs the plain version for CPU tensors and the
 CUDA kernels (``csrc/gl_iteration.cu``: one launch of each of the three
 steps per iteration, all from one wrapper call) for CUDA tensors; anything
-else raises.  The DFT matrices are built once per (n_fft, dtype, device),
-the banded OLA coefficients once per (window, F, hop, device).
+else raises.  From the second iteration on the kernels compute only inside
+the window's support (:func:`window_support`), which drops only products
+with exact zeros.  The DFT matrices are built once per (n_fft, dtype,
+device), the banded OLA coefficients and the support once per (window, F,
+hop, device); :func:`bf16_plan` reports the bf16 launch.
 """
 
 from __future__ import annotations
