@@ -1131,10 +1131,12 @@ def phase_gl_iteration():
     win = _window()
     plan = gl.bf16_plan(win)
     lo, hi = plan["support"]
-    log(f"[gl_iteration] bf16 launch plan: {plan['tile']}, {plan['warpgroups']} consumer "
-        f"warpgroups, {plan['stages']} stages, {plan['smem_bytes']} B of dynamic shared "
-        f"memory a block; serving window hann(1102) in {n_fft}: {int((win != 0).sum())} "
-        f"nonzero samples, support [{lo}, {hi}) (rounded out to {gl.K_STEP})")
+    log("[gl_iteration] bf16 launch plan: " + "; ".join(
+        f"{k} product {p['tile']}, {p['warpgroups']} consumer warpgroups, {p['stages']} "
+        f"stages, {p['smem_bytes']} B of dynamic shared memory a block"
+        for k, p in ((k, plan[k]) for k in ("forward", "inverse")))
+        + f"; serving window hann(1102) in {n_fft}: {int((win != 0).sum())} nonzero "
+        f"samples, support [{lo}, {hi}) (rounded out to {gl.K_STEP})")
     # two iterations elementwise on a broadband magnitude (every bin of
     # every output near the same scale, peak ~7x the RMS).  Per output and
     # dtype: (a) the elements off by more than `peak` of the output's peak,

@@ -3,11 +3,12 @@
 
     python3 gl_ab.py DIR [build]
 
-Runs, from the checkout in DIR, ``gl_fast_iterations`` at B=32 and B=1
+Runs the port of the checkout in DIR (any commit of it: only its
+``ops.gl_iteration.gl_fast_iterations`` is called) at B=32 and B=1
 (F=1000, n_fft 2048, hop 275, 12 bf16 iterations, the serving window, the
-inputs of ``chip_smoke.py phase_gl_iteration``) and prints one line: the
-call's time (CUDA events) and the device time of each of its three kernels
-(profiler).  ``build`` builds every kernel library first.  To compare two
+inputs of this checkout's ``chip_smoke.py phase_gl_iteration``) and prints
+one line: the call's time (CUDA events) and the device time of each of its
+three kernels (profiler).  ``build`` builds every kernel library first.  To compare two
 versions on one card, run it in turns in one command: parent, change,
 change, parent.  Needs a CUDA device.
 """
@@ -17,11 +18,11 @@ import sys
 
 
 def main() -> int:
+    import torch
+    import chip_smoke as c          # this checkout's; it imports the port lazily
     root = os.path.abspath(sys.argv[1])
     os.chdir(root)
     sys.path.insert(0, root)
-    import torch
-    import chip_smoke as c
     from tacotron_multispeaker_torch.ops import gl_iteration as gl
     if not torch.cuda.is_available():
         print("gl_ab: no CUDA device", file=sys.stderr)

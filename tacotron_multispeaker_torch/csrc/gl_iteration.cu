@@ -45,27 +45,32 @@
 // frames, spectra and fr go through device memory (and the 50 MB L2)
 // between the three kernels.
 // * bf16 (the serving precision): both products on wgmma (sm90_common.cuh).
-//   A block computes a 128 x 128 tile (two consumer warpgroups of 64 rows,
-//   m64n128k16, f32 accumulators in registers) from a ring of 3 stages of
-//   64-deep k-blocks in dynamic shared memory (32 KB a stage, two blocks an
-//   SM), filled by one producer thread with TMA loads: A (frames or st)
-//   K-major with 128-byte swizzle, B (fwd or inv) N-major as two 64-column
-//   boxes read with wgmma's transpose bit.  Zero fill of the tensor maps
-//   covers the ragged G and K.  Blocks walk the column tiles of one row
-//   tile in turn, so A comes from device memory once and the B matrix
-//   (4.7-8.9 MB) stays in L2.  Both epilogues stage the f32 tile in the
-//   ring (free after the last product).  The forward one then projects
-//   with consecutive threads on consecutive bins of a frame: the state
-//   (one 8-byte access a pair), magnitude and st (one 4-byte store a pair)
-//   accesses are coalesced, and each thread issues 16 pairs' reads before
-//   it uses any.  Projecting straight from the accumulator registers (each
-//   thread holds re and im of 2 frames x 16 bins) left 8 rows x 32 bytes a
-//   warp access and, at the 96-register limit of two blocks an SM, 4 pairs
-//   in flight: 9.8 ms against 7.0 ms for the 12 forward launches at B=32
-//   (measured on an H100).  The inverse epilogue stores whole 16-byte
-//   pieces of fr rows.  bins = 1025 gives 17 column tiles; the 17th carries
-//   one bin (a full-width tile: 6 % of the forward products, kept for one
-//   code path).
+//   A block computes a (64 NWG) x 128 tile, NWG consumer warpgroups of 64
+//   rows (m64n128k16, f32 accumulators in registers), from a ring of 64-deep
+//   k-blocks in dynamic shared memory that one producer thread fills with
+//   TMA loads: A (frames or st) K-major with 128-byte swizzle, B (fwd or
+//   inv) N-major as two 64-column boxes read with wgmma's transpose bit.
+//   Zero fill of the tensor maps covers the ragged G and K.  The forward
+//   product takes 256 rows (NWG = 4, 4 stages of 48 KB, one block an SM),
+//   the inverse 128 (NWG = 2, 3 stages of 32 KB, two blocks an SM).  Blocks
+//   walk the column tiles of one row tile in turn, so A comes from device
+//   memory once and the B matrix (4.7-8.9 MB) stays in L2.
+//   Both epilogues stage the f32 tile in the ring (free after the last
+//   product).  The forward one then projects with consecutive threads on
+//   consecutive bins of a frame: the state (one 8-byte access a pair),
+//   magnitude and st (one 4-byte store a pair) accesses are coalesced, and
+//   each thread issues 16 pairs' reads before it uses any.  The inverse one
+//   stores whole 16-byte pieces of fr rows.  bins = 1025 gives 17 forward
+//   column tiles; the 17th carries one bin (a full-width tile: 6 % of the
+//   forward products, kept for one code path).
+//   Measured on an H100 (12 launches of the forward, 11 of the inverse, at
+//   B=32): projecting straight from the accumulator registers (each thread
+//   holds re and im of 2 frames x 16 bins) left 8 rows x 32 bytes a warp
+//   access and, at the 96-register limit of two blocks an SM, 4 pairs in
+//   flight: 9.8 against 7.0 ms.  The 256-row forward tile loads 25 % fewer
+//   operand bytes a product than the 128-row one: 6.4 against 6.9 ms.  A
+//   256-row inverse took 3.3 against 3.7 ms at B=32 but 0.38 against 0.28
+//   ms at B=1, whose 128-row tiles already leave most SMs idle.
 // * f32 (the check path): the same three steps and layouts on the FMA tile
 //   of mma_common.cuh (64 x 64, CUDA cores) with the same support ranges.
 // The banded pass reads fr from L2 (15 shifts at n_fft 2048, hop 275, at
@@ -252,30 +257,38 @@ gl_inv_f32_kernel(const float* __restrict__ st, const float* __restrict__ ci,
 
 // --------------------------------------------------------------- bf16 path
 
-constexpr int BM = 128, BN = 128, BK = 64, NWG = BM / 64;
-constexpr int NTHREADS = NWG * 128 + 32;         // consumers + one producer warp
-constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2, STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int BN = 128, BK = 64;
+constexpr int B_BYTES = BK * BN * 2;
 constexpr int LDS = BN + 8;                      // a staged f32 tile row (floats)
-constexpr int SMEM_BUDGET = 115712;              // two blocks an SM
 constexpr int SMEM_FIXED = 1024 + 16 * 8;        // alignment slack, barriers
 
-constexpr int STAGES = (SMEM_BUDGET - SMEM_FIXED) / STAGE_BYTES;
-constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
-static_assert(STAGES >= 2 && STAGES * STAGE_BYTES >= BM * LDS * 4, "ring");
+// The ring of a tile of BM = 64 * NWG rows (NWG consumer warpgroups and one
+// producer warp): as many 64-deep stages as fit in the shared memory of two
+// blocks an SM (NWG = 2) or one (NWG = 4), and at least the staged tile.
+template <int NWG>
+struct Ring {
+  static constexpr int BM = 64 * NWG, NTHREADS = NWG * 128 + 32;
+  static constexpr int A_BYTES = BM * BK * 2, STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int STAGES = ((NWG == 2 ? 115712 : 232448) - SMEM_FIXED) / STAGE_BYTES;
+  static constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  static_assert(STAGES >= 2 && STAGES * STAGE_BYTES >= BM * LDS * 4, "ring");
+};
 
 // The k-blocks of one BM x BN tile through the TMA ring: A rows [arow, arow
 // + BM) at k = ak0 + 64 kb, B columns [bcol, bcol + BN) at k = bk0 + 64 kb,
 // kb < nkb; the last k-block runs its first last_ks 16-deep steps (the rest
 // is zero fill).  The producer warp returns false; each consumer warpgroup
 // returns true with its 64 rows' sums in acc.
+template <int NWG>
 __device__ __forceinline__ bool tile_product(unsigned char* smem, const CUtensorMap* amap,
                                              const CUtensorMap* bmap, int arow, int ak0,
                                              int bcol, int bk0, int nkb, int last_ks,
                                              float (&acc)[64]) {
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
-  uint64_t* empty = full + STAGES;
+  using R = Ring<NWG>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::STAGES * R::STAGE_BYTES);
+  uint64_t* empty = full + R::STAGES;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < R::STAGES; ++s) {
       sm90::mbar_init(&full[s], 1);
       sm90::mbar_init(&empty[s], NWG);
     }
@@ -285,13 +298,13 @@ __device__ __forceinline__ bool tile_product(unsigned char* smem, const CUtensor
   if (threadIdx.x >= NWG * 128) {
     if (threadIdx.x == NWG * 128) {
       for (int kb = 0; kb < nkb; ++kb) {
-        const int s = kb % STAGES;
-        if (kb >= STAGES) sm90::mbar_wait(&empty[s], (kb / STAGES - 1) & 1);
-        sm90::mbar_expect_tx(&full[s], STAGE_BYTES);
-        unsigned char* a = smem + s * STAGE_BYTES;
+        const int s = kb % R::STAGES;
+        if (kb >= R::STAGES) sm90::mbar_wait(&empty[s], (kb / R::STAGES - 1) & 1);
+        sm90::mbar_expect_tx(&full[s], R::STAGE_BYTES);
+        unsigned char* a = smem + s * R::STAGE_BYTES;
         sm90::tma_load_3d(a, amap, &full[s], ak0 + kb * BK, arow, 0);
         for (int c = 0; c < BN / 64; ++c)
-          sm90::tma_load_3d(a + A_BYTES + c * BK * 128, bmap, &full[s], bcol + 64 * c,
+          sm90::tma_load_3d(a + R::A_BYTES + c * BK * 128, bmap, &full[s], bcol + 64 * c,
                             bk0 + kb * BK, 0);
       }
     }
@@ -302,23 +315,23 @@ __device__ __forceinline__ bool tile_product(unsigned char* smem, const CUtensor
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   constexpr uint32_t b_lbo = BK * 128;   // the second 64-column box
   for (int kb = 0; kb < nkb; ++kb) {
-    const int s = kb % STAGES;
-    sm90::mbar_wait(&full[s], (kb / STAGES) & 1);
-    const unsigned char* a = smem + s * STAGE_BYTES + wg * 64 * BK * 2;
-    const unsigned char* bt = smem + s * STAGE_BYTES + A_BYTES;
+    const int s = kb % R::STAGES;
+    sm90::mbar_wait(&full[s], (kb / R::STAGES) & 1);
+    const unsigned char* a = smem + s * R::STAGE_BYTES + wg * 64 * BK * 2;
+    const unsigned char* bt = smem + s * R::STAGE_BYTES + R::A_BYTES;
     sm90::fence_operands(acc);
     sm90::wgmma_fence();
     switch (kb + 1 < nkb ? 4 : last_ks) {
-      case 1: sm90::kblock<1, BK, BM>(acc, a, bt, b_lbo); break;
-      case 2: sm90::kblock<2, BK, BM>(acc, a, bt, b_lbo); break;
-      case 3: sm90::kblock<3, BK, BM>(acc, a, bt, b_lbo); break;
-      default: sm90::kblock<4, BK, BM>(acc, a, bt, b_lbo); break;
+      case 1: sm90::kblock<1, BK, R::BM>(acc, a, bt, b_lbo); break;
+      case 2: sm90::kblock<2, BK, R::BM>(acc, a, bt, b_lbo); break;
+      case 3: sm90::kblock<3, BK, R::BM>(acc, a, bt, b_lbo); break;
+      default: sm90::kblock<4, BK, R::BM>(acc, a, bt, b_lbo); break;
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();
     sm90::fence_operands(acc);
     // the products of k-block kb - 1 are done: its stage may be refilled
-    if (kb > 0 && tid == 0) sm90::mbar_arrive(&empty[(kb - 1) % STAGES]);
+    if (kb > 0 && tid == 0) sm90::mbar_arrive(&empty[(kb - 1) % R::STAGES]);
   }
   sm90::wgmma_wait<0>();
   sm90::fence_operands(acc);
@@ -346,14 +359,16 @@ __device__ __forceinline__ unsigned char* aligned_smem() {
 
 // forward product over k in [k_lo, k_lo + 64 nkb); tiles numbered column
 // tile fastest (n_ct = ncol / 128 of them, 64 bins each)
-__global__ void __launch_bounds__(NTHREADS, 2)
+template <int NWG>
+__global__ void __launch_bounds__(Ring<NWG>::NTHREADS, NWG == 2 ? 2 : 1)
 gl_fwd_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
                    const __grid_constant__ CUtensorMap fmap, const Proj o, int n_ct, int k_lo,
                    int nkb, int last_ks) {
+  constexpr int BM = Ring<NWG>::BM;
   unsigned char* smem = aligned_smem();
   const int n_tile = (int)(blockIdx.x % n_ct), row0 = (int)(blockIdx.x / n_ct) * BM;
   float acc[64];
-  if (!tile_product(smem, &wmap, &fmap, row0, k_lo, n_tile * BN, k_lo, nkb, last_ks, acc))
+  if (!tile_product<NWG>(smem, &wmap, &fmap, row0, k_lo, n_tile * BN, k_lo, nkb, last_ks, acc))
     return;
   // (re, im) through the ring (free once every consumer is past its last
   // product), then the projection with consecutive threads on consecutive
@@ -380,15 +395,17 @@ gl_fwd_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
 }
 
 // inverse product, fr columns [lo, lo + 128 n_ct) clipped at hi
-__global__ void __launch_bounds__(NTHREADS, 2)
+template <int NWG>
+__global__ void __launch_bounds__(Ring<NWG>::NTHREADS, NWG == 2 ? 2 : 1)
 gl_inv_bf16_kernel(const __grid_constant__ CUtensorMap smap,
                    const __grid_constant__ CUtensorMap imap, float* __restrict__ fr, int G,
                    int n_fft, int lo, int hi, int n_ct, int nkb, int last_ks) {
+  constexpr int BM = Ring<NWG>::BM;
   unsigned char* smem = aligned_smem();
   const int n_tile = (int)(blockIdx.x % n_ct), row0 = (int)(blockIdx.x / n_ct) * BM;
   const int col0 = lo + n_tile * BN;
   float acc[64];
-  if (!tile_product(smem, &smap, &imap, row0, 0, col0, 0, nkb, last_ks, acc)) return;
+  if (!tile_product<NWG>(smem, &smap, &imap, row0, 0, col0, 0, nkb, last_ks, acc)) return;
   // every consumer is past its last product before the ring is reused
   asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
   float* stg = reinterpret_cast<float*>(smem);
@@ -463,37 +480,45 @@ int launch_f32(const Buffers& b, const Geo& g, int n_iters, float mom, cudaStrea
   return 0;
 }
 
+// consumer warpgroups of the two bf16 products' tiles
+constexpr int FWD_NWG = 4, INV_NWG = 2;
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 int launch_bf16(const Buffers& b, const Geo& g, int n_iters, float mom, cudaStream_t s) {
+  using RF = Ring<FWD_NWG>;
+  using RI = Ring<INV_NWG>;
   CUtensorMap wmap, fmap, smap, imap;
-  if (!sm90::make_map(&wmap, b.wf, g.n_fft, g.G, 1, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!sm90::make_map(&wmap, b.wf, g.n_fft, g.G, 1, BK, RF::BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !sm90::make_map(&fmap, b.fwd, g.ncol, g.n_fft, 1, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !sm90::make_map(&smap, b.st, g.KI, g.G, 1, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !sm90::make_map(&smap, b.st, g.KI, g.G, 1, BK, RI::BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !sm90::make_map(&imap, b.inv, g.n_fft, g.KI, 1, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B))
     return int(cudaErrorInvalidValue);
-  static bool configured = false;   // once: allow the ring's dynamic shared memory
+  static bool configured = false;   // once: allow the rings' dynamic shared memory
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(gl_fwd_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(gl_inv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
+    cudaError_t e = allow_smem(gl_fwd_bf16_kernel<FWD_NWG>, RF::SMEM_BYTES);
+    if (e == cudaSuccess) e = allow_smem(gl_inv_bf16_kernel<INV_NWG>, RI::SMEM_BYTES);
     if (e != cudaSuccess) return int(e);
     configured = true;
   }
-  const long long rows = (g.G + BM - 1) / BM;
-  const int fwd_ct = g.ncol / BN, inv_ct = (g.hi - g.lo + BN - 1) / BN;
-  if (rows * fwd_ct > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  const long long fwd_blocks = (long long)(g.G + RF::BM - 1) / RF::BM * (g.ncol / BN);
+  const int inv_ct = (g.hi - g.lo + BN - 1) / BN;
+  const long long inv_blocks = (long long)(g.G + RI::BM - 1) / RI::BM * inv_ct;
+  if (fwd_blocks > 0x7fffffffLL || inv_blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
   int inv_nkb, inv_ks;
   k_blocks(g.KI, inv_nkb, inv_ks);
   for (int it = 0; it < n_iters; ++it) {
     const int k_lo = it ? g.lo : 0, k_hi = it ? g.hi : g.n_fft;
     int nkb, last_ks;
     k_blocks(k_hi - k_lo, nkb, last_ks);
-    gl_fwd_bf16_kernel<<<(unsigned)(rows * fwd_ct), NTHREADS, SMEM_BYTES, s>>>(
-        wmap, fmap, proj(b, g, mom, it, n_iters), fwd_ct, k_lo, nkb, last_ks);
+    gl_fwd_bf16_kernel<FWD_NWG><<<(unsigned)fwd_blocks, RF::NTHREADS, RF::SMEM_BYTES, s>>>(
+        wmap, fmap, proj(b, g, mom, it, n_iters), g.ncol / BN, k_lo, nkb, last_ks);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || it + 1 == n_iters) return int(err);
-    gl_inv_bf16_kernel<<<(unsigned)(rows * inv_ct), NTHREADS, SMEM_BYTES, s>>>(
+    gl_inv_bf16_kernel<INV_NWG><<<(unsigned)inv_blocks, RI::NTHREADS, RI::SMEM_BYTES, s>>>(
         smap, imap, static_cast<float*>(b.fr), g.G, g.n_fft, g.lo, g.hi, inv_ct, inv_nkb,
         inv_ks);
     const int e = launch_ola<__nv_bfloat16>(b, g, s);
@@ -526,15 +551,14 @@ int gl_iterations_launch(void* wf, const void* mag, const void* fwd, const void*
   return is_bf16 ? launch_bf16(b, g, n_iters, mom, s) : launch_f32(b, g, n_iters, mom, s);
 }
 
-// The bf16 launch: out = {tile rows, tile columns, k-block depth, consumer
-// warpgroups, ring stages, dynamic shared memory bytes}.
+// The bf16 launch: out = {tile rows, consumer warpgroups, ring stages,
+// dynamic shared memory bytes} of the forward product, then of the inverse
+// (both tiles 128 columns wide, 64-deep k-blocks).
 void gl_iterations_plan(int* out) {
-  out[0] = BM;
-  out[1] = BN;
-  out[2] = BK;
-  out[3] = NWG;
-  out[4] = STAGES;
-  out[5] = SMEM_BYTES;
+  const int plan[8] = {Ring<FWD_NWG>::BM, FWD_NWG, Ring<FWD_NWG>::STAGES,
+                       Ring<FWD_NWG>::SMEM_BYTES, Ring<INV_NWG>::BM, INV_NWG,
+                       Ring<INV_NWG>::STAGES, Ring<INV_NWG>::SMEM_BYTES};
+  for (int i = 0; i < 8; ++i) out[i] = plan[i];
 }
 
 }  // extern "C"

@@ -225,15 +225,17 @@ def gl_fast_iterations(wf0, magT, window, hop: int, n_iters: int, mom: float):
 
 
 def bf16_plan(window) -> dict:
-    """The bf16 launch: the product tile (rows x columns x k-block depth),
-    consumer warpgroups, ring stages, dynamic shared memory bytes a block,
-    and the window's support [lo, hi) (:func:`window_support`)."""
-    out = (ctypes.c_int * 6)()
+    """The bf16 launch: for the forward and the inverse product, the tile
+    (rows x 128 columns x 64-deep k-blocks on wgmma), consumer warpgroups,
+    ring stages and dynamic shared memory bytes a block; and the window's
+    support [lo, hi) (:func:`window_support`)."""
+    out = (ctypes.c_int * 8)()
     _lib().gl_iterations_plan(out)
     win = window.detach().float().cpu().numpy() if torch.is_tensor(window) else window
-    return {"tile": f"wgmma m64n128k16, {out[0]} x {out[1]} x {out[2]}",
-            "warpgroups": out[3], "stages": out[4], "smem_bytes": out[5],
-            "support": window_support(win)}
+    plan = {name: {"tile": f"wgmma m64n128k16, {out[i]} x 128 x 64", "warpgroups": out[i + 1],
+                   "stages": out[i + 2], "smem_bytes": out[i + 3]}
+            for name, i in (("forward", 0), ("inverse", 4))}
+    return {**plan, "support": window_support(win)}
 
 
 def _lib() -> ctypes.CDLL:

@@ -609,14 +609,19 @@ def test_gl_iteration_kernel_matches_plain_on_card(cuda, dtype, tol, window, B, 
 
 @pytest.mark.gpu
 def test_gl_iteration_bf16_plan(cuda):
-    # the launch chip_smoke.py logs: the wgmma tile, two consumer
-    # warpgroups, a ring that leaves room for two blocks an SM, and the
-    # serving window's support rounded out to the 64-sample k-block
+    # the launch chip_smoke.py logs: each product's wgmma tile, its consumer
+    # warpgroups (64 rows each), a ring of at least two stages that holds
+    # the staged f32 tile, and the serving window's support rounded
+    # out to the 64-sample k-block
     win = hann_window(1102, 2048)
     plan = tgl.bf16_plan(torch.from_numpy(win).to(cuda))
-    assert plan["tile"] == "wgmma m64n128k16, 128 x 128 x 64"
-    assert plan["warpgroups"] == 2 and plan["stages"] >= 2
-    assert plan["stages"] * 32768 < plan["smem_bytes"] <= 232448 // 2
+    for name in ("forward", "inverse"):
+        p = plan[name]
+        rows = 64 * p["warpgroups"]
+        assert p["tile"] == f"wgmma m64n128k16, {rows} x 128 x 64", name
+        stage = (rows + 128) * 64 * 2                     # A and B boxes, bf16
+        assert p["stages"] >= 2 and p["stages"] * stage >= rows * 136 * 4, name
+        assert p["stages"] * stage < p["smem_bytes"] <= 232448, name
     assert plan["support"] == tgl.window_support(win) == (448, 1600)
 
 
