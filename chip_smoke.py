@@ -1132,9 +1132,9 @@ def phase_gl_iteration():
     plan = gl.bf16_plan(win)
     lo, hi = plan["support"]
     log("[gl_iteration] bf16 launch plan: " + "; ".join(
-        f"{k} product {p['tile']}, {p['warpgroups']} consumer warpgroups, {p['stages']} "
-        f"stages, {p['smem_bytes']} B of dynamic shared memory a block"
-        for k, p in ((k, plan[k]) for k in ("forward", "inverse")))
+        f"{k} product {plan[k]['tile']}, {plan[k]['warpgroups']} consumer warpgroups, "
+        f"{plan[k]['stages']} stages, {plan[k]['smem_bytes']} B of dynamic shared memory "
+        "a block" for k in ("forward", "inverse"))
         + f"; serving window hann(1102) in {n_fft}: {int((win != 0).sum())} nonzero "
         f"samples, support [{lo}, {hi}) (rounded out to {gl.K_STEP})")
     # two iterations elementwise on a broadband magnitude (every bin of
@@ -1153,12 +1153,13 @@ def phase_gl_iteration():
     # serving path's input); the serving window and frames windowed by it
     # plus 0.05, so nonzero outside its support (iteration 1 must read the
     # whole frame: white frames cut to the support have a spectrum 7 % off
-    # in norm, 7000x the f32 bulk limit); a window with no zero (the whole frame is the
-    # support).  Frames with more weight outside the support put more bins
-    # near |a| ~ 0 in iteration 2, where phase flips pass the elementwise
-    # limits with every norm-wise error inside its own: unwindowed frames
-    # gave 50 and 37 bf16 elements past 3e-2 of the peak (at most 32), and
-    # frames windowed by hann + 0.05 one f32 element past 1e-3.
+    # in norm, 7000x the f32 bulk limit); a window with no zero (the whole
+    # frame is the support).  Frames with more weight outside the support
+    # put more bins near |a| ~ 0 in iteration 2, where phase flips pass the
+    # elementwise limits with every norm-wise error inside its own:
+    # unwindowed frames gave 50 and 37 bf16 elements past 3e-2 of the peak
+    # (at most 32), and frames windowed by hann + 0.05 one f32 element past
+    # 1e-3.
     tol = {torch.float32: (1e-3, 0.0, 1e-5), torch.bfloat16: (3e-2, 1e-6, 3e-3)}
     off_zero = torch.from_numpy(np.hanning(n_fft).astype(np.float32) + 0.05).cuda()
     cases = {"serving window, frames windowed by it": dict(),
