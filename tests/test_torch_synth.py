@@ -137,6 +137,7 @@ def _python_files():
     for root, _, files in os.walk(PORT):
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "gl_ab.py")
 
 
 def test_port_sources_import_nothing_of_jax():
