@@ -13,7 +13,10 @@ Phases (no failure is caught; any exception exits non-zero):
 3. Holds each kernel against its plain PyTorch version on the card at the
    serving, training, one-direction GRU and sharded paths' shapes, in float32 and bfloat16, every
    output by name, and times kernel, plain version and, where one PyTorch
-   call computes the same function, that call (``library_ms``).
+   call computes the same function, that call (``library_ms``).  The
+   decoder loop (kernel 5) is held at every thread-block-cluster size the
+   card takes, and its per-step latency bound is computed from latencies
+   probed on the card (``csrc/latency_probe.cu``).
 4. Checks ``generate`` at full-width ``multispeaker_vctk``, dropout off: in
    float32 on the card against the plain path on the CPU (the default and
    the location-attention path), and in bfloat16 (the serving precision)
@@ -162,7 +165,7 @@ def phase_card():
 def phase_build():
     from tacotron_multispeaker_torch.ops import KERNELS, cuda_build
     t0 = time.perf_counter()
-    info = cuda_build.build_all(KERNELS)
+    info = cuda_build.build_all((*KERNELS, "latency_probe"))
     log(f"[build] {len(info)} kernel libraries in {time.perf_counter() - t0:.2f} s "
         f"(parallel nvcc)")
     for name, rec in info.items():
@@ -421,6 +424,15 @@ def _decoder_case(B, L, n_steps, dtype, scale, seed, M=80, P1=256, P2=128, H=256
     return (w, keys, memory, mask, dm1, dm2, attn_h0, dec_h0, n_steps, M)
 
 
+def _decoder_dims(args):
+    """decoder_loop's launch dims of a ``_decoder_case``: B, L, A, D, H, M,
+    P1, P2, RM, n_layers, n_steps."""
+    w, keys, memory, mask, dm1, dm2, attn_h0, dec_h0, S, M = args
+    B, L, A = keys.shape
+    return (B, L, A, memory.shape[-1], w.a_hc.shape[0], M, w.w1.shape[1], w.w2.shape[1],
+            w.wf.shape[1], len(w.l_xg), S)
+
+
 def _decoder_bound_ms(args):
     w, keys, memory, mask, dm1, dm2, attn_h0, dec_h0, S, M = args
     B, L, A = keys.shape
@@ -436,6 +448,76 @@ def _decoder_bound_ms(args):
                      f32_flops=S * B * (3 * L * A + 4 * L))
 
 
+def _latency_probe(sizes):
+    """Latencies behind kernel 5's per-step bound, measured on this card
+    (``csrc/latency_probe.cu``, CUDA events over many dependent operations):
+    one L2 round trip (us), one DSMEM store + cluster barrier for each
+    cluster size in ``sizes`` (us), one SM's L2 bandwidth and the whole
+    card's (bytes/s, from an L2-resident 4 MB buffer)."""
+    import ctypes
+    import numpy as np
+    import torch
+    from tacotron_multispeaker_torch.ops import cuda_build
+    lib = cuda_build.library("latency_probe")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.probe_l2_chase.argtypes = [vp, ci, vp, vp]
+    lib.probe_cluster_sync.argtypes = [ci, ci, vp, vp]
+    lib.probe_l2_stream.argtypes = [vp, ctypes.c_size_t, ci, ci, vp, vp]
+    stream = torch.cuda.current_stream().cuda_stream
+    sink = torch.zeros(4, device="cuda")
+    n = 1 << 20                                   # 4 MB of int32: in L2, not L1
+    perm = np.random.RandomState(0).permutation(n)
+    nxt = np.empty(n, np.int32)
+    nxt[perm] = np.roll(perm, -1)
+    nxt = torch.from_numpy(nxt).cuda()
+    nxt.sum().item()                              # brings the chain into L2
+
+    def timed(call, count):
+        call()
+        torch.cuda.synchronize()
+        ms = cuda_time_ms(lambda: cuda_build.check(call(), "latency probe"), reps=3)
+        return ms * 1e3 / count
+
+    hops = 20000
+    rt_us = timed(lambda: lib.probe_l2_chase(nxt.data_ptr(), hops, sink.data_ptr(), stream),
+                  hops)
+    iters = 20000
+    bar_us = {C: timed(lambda C=C: lib.probe_cluster_sync(C, iters, sink.data_ptr(), stream),
+                       iters) for C in sizes}
+    buf = torch.ones(1 << 20, device="cuda")      # 4 MB
+    reps = 8
+    n16 = buf.numel() * 4 // 16
+    sm_s = timed(lambda: lib.probe_l2_stream(buf.data_ptr(), n16, reps, 1, sink.data_ptr(),
+                                             stream), 1) * 1e-6
+    card_s = timed(lambda: lib.probe_l2_stream(buf.data_ptr(), n16, reps, 132,
+                                               sink.data_ptr(), stream), 1) * 1e-6
+    nbytes = buf.numel() * 4 * reps
+    return {"l2_round_trip_us": rt_us, "cluster_barrier_us": bar_us,
+            "sm_l2_bytes_s": nbytes / sm_s, "card_l2_bytes_s": 132 * nbytes / card_s}
+
+
+def _decoder_latency_bound_ms(args, C, coresident, probe):
+    """Kernel 5's per-step latency bound: each of the 8 + 2N dependent phases
+    waits one L2 round trip and one DSMEM exchange + cluster barrier, and a
+    CTA streams its 1/C of the step's weight, key and memory bytes through
+    its SM's L2 port (or all running rows share the card's L2 bandwidth,
+    whichever is slower); rows beyond the co-resident clusters run in
+    later waves."""
+    import math
+    w, keys, memory, mask, dm1, dm2, attn_h0, dec_h0, S, M = args
+    B = keys.shape[0]
+    n_layers = len(w.l_xg)
+    mats = [t for v in w for t in (v if isinstance(v, tuple) else (v,)) if t.dim() == 2]
+    step_bytes = _nbytes(*mats) + (keys[0].numel() + memory[0].numel()) * keys.element_size()
+    running = min(B, coresident)
+    stream_s = max(step_bytes / C / probe["sm_l2_bytes_s"],
+                   running * step_bytes / probe["card_l2_bytes_s"])
+    phases = 8 + 2 * n_layers
+    step_s = (phases * (probe["l2_round_trip_us"] + probe["cluster_barrier_us"][C]) * 1e-6
+              + stream_s)
+    return S * math.ceil(B / coresident) * step_s * 1e3
+
+
 def phase_decoder():
     import torch
     from tacotron_multispeaker_torch.ops import decoder_loop as dl
@@ -449,31 +531,71 @@ def phase_decoder():
     # (~1/L = 5e-3) and fails a broken bf16 key load or softmax.
     tol = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (5e-2, 1e-3)}
     worst = 0.0
+    # B=1; ragged B=3 L=13 (some CTAs hold no position at C=16); the B=32
+    # batch at D=320 (multispeaker_vctk) and D=384 (pod_synthesis); each at
+    # the plan's C and at every C forced through the launcher
+    cases = [(1, 96, 320), (3, 13, 320), (32, 192, 320), (32, 192, 384)]
     for dtype in (torch.float32, torch.bfloat16):
-        args = _decoder_case(32, 192, 8, dtype, scale=0.05, seed=3)
-        fk, ak = dl.decoder_loop(*args)
-        fr, ar = dl.decoder_loop_reference(*args)
-        torch.cuda.synchronize()
-        ef = (fk - fr).abs().max().item()
-        ea = (ak - ar).abs().max().item()
-        tf, ta = tol[dtype]
-        log(f"[decoder_loop] B=32 L=192 S=8 {str(dtype)[6:]}: max|kernel-plain| "
-            f"frames {ef:.3e} (tol {tf:.0e}) align {ea:.3e} (tol {ta:.0e})")
-        if not (ef <= tf and ea <= ta):
-            raise AssertionError(f"decoder_loop disagrees with its plain version: {ef}, {ea}")
-        worst = max(worst, ef, ea)
-    # timing at the B=32 batch's shape: 200 steps, L=192, bf16
-    args = _decoder_case(32, 192, 200, torch.bfloat16, scale=0.05, seed=5)
-    ms = cuda_time_ms(lambda: dl.decoder_loop(*args), reps=5)
+        for ci, (B, L, D) in enumerate(cases):
+            args = _decoder_case(B, L, 8, dtype, scale=0.05, seed=3 + ci, D=D)
+            fr, ar = dl.decoder_loop_reference(*args)
+            vec = 16 // args[1].element_size()
+            counts = dl.cluster_counts(_decoder_dims(args), int(dtype == torch.bfloat16),
+                                       args[1].device)
+            runs = [("plan", lambda: dl.decoder_loop(*args))]
+            runs += [(f"C={C}", lambda C=C: dl._decoder_loop_cuda(*args, cluster=C))
+                     for C in dl.CLUSTER_SIZES if counts[C] > 0]
+            for label, run in runs:
+                fk, ak = run()
+                torch.cuda.synchronize()
+                ef = (fk - fr).abs().max().item()
+                ea = (ak - ar).abs().max().item()
+                tf, ta = tol[dtype]
+                log(f"[decoder_loop] B={B} L={L} D={D} S=8 {str(dtype)[6:]} {label} "
+                    f"(ran C={dl.last_plan[0]}): max|kernel-plain| frames {ef:.3e} "
+                    f"(tol {tf:.0e}) align {ea:.3e} (tol {ta:.0e})")
+                if not (ef <= tf and ea <= ta):
+                    raise AssertionError(f"decoder_loop disagrees with its plain version "
+                                         f"(B={B} L={L} D={D} {label}): {ef}, {ea}")
+                worst = max(worst, ef, ea)
+            log(f"[decoder_loop] B={B} L={L} D={D} {str(dtype)[6:]}: co-resident clusters "
+                f"{counts}, plan C={dl.launch_plan(B, _decoder_dims(args)[4], vec, counts)}")
+    probe = _latency_probe(dl.CLUSTER_SIZES)
+    log(f"[decoder_loop] probe: L2 round trip {probe['l2_round_trip_us']:.3f} us, DSMEM store "
+        f"+ cluster barrier {json.dumps({C: round(v, 3) for C, v in probe['cluster_barrier_us'].items()})} "
+        f"us, one SM's L2 read {probe['sm_l2_bytes_s'] / 1e9:.1f} GB/s, the card's "
+        f"{probe['card_l2_bytes_s'] / 1e9:.1f} GB/s")
+    # timing (bf16): the serving paths' B=1 (L=96) and B=32 (L=192) shapes,
+    # 200 steps, and pod_synthesis's (B=32 L=192 D=384, 400 steps); the
+    # plan's C, then every C the card can hold, for the sweep
+    timed = {}
+    for label, (B, L, S, D) in (("B=1 L=96 S=200", (1, 96, 200, 320)),
+                                ("B=32 L=192 S=200", (32, 192, 200, 320)),
+                                ("B=32 L=192 S=400 D=384", (32, 192, 400, 384))):
+        args = _decoder_case(B, L, S, torch.bfloat16, scale=0.05, seed=5 + B + S, D=D)
+        ms = cuda_time_ms(lambda: dl.decoder_loop(*args), reps=5)
+        C, coresident = dl.last_plan
+        bound_ms, bound_by = _decoder_bound_ms(args)
+        lat_ms = _decoder_latency_bound_ms(args, C, coresident, probe)
+        sweep = {}
+        if S == 200:
+            counts = dl.cluster_counts(_decoder_dims(args), 1, args[1].device)
+            for c in dl.CLUSTER_SIZES:
+                if counts[c] > 0:
+                    sweep[c] = round(cuda_time_ms(
+                        lambda c=c: dl._decoder_loop_cuda(*args, cluster=c), reps=3), 3)
+        log(f"[decoder_loop] {label} bf16: kernel {ms:.3f} ms at C={C} ({coresident} "
+            f"clusters co-resident), bound {bound_ms:.4f} ms ({bound_by}), latency bound "
+            f"{lat_ms:.3f} ms ({100 * lat_ms / ms:.1f} % of the kernel's time)"
+            + (f"; by C: {json.dumps(sweep)} ms" if sweep else ""))
+        timed[label] = (args, ms, C, bound_ms, bound_by, lat_ms)
+    args, ms, C, bound_ms, bound_by, lat_ms = timed["B=32 L=192 S=200"]
     plain_ms = cuda_time_ms(lambda: dl.decoder_loop_reference(*args), reps=1)
-    bound_ms, bound_by = _decoder_bound_ms(args)
-    log(f"[decoder_loop] B=32 L=192 S=200 bf16: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    args1 = _decoder_case(1, 96, 200, torch.bfloat16, scale=0.05, seed=6)
-    ms1 = cuda_time_ms(lambda: dl.decoder_loop(*args1), reps=5)
-    log(f"[decoder_loop] B=1 L=96 S=200 bf16: kernel {ms1:.3f} ms")
+    log(f"[decoder_loop] B=32 L=192 S=200 bf16: plain {plain_ms:.3f} ms")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_latency_ms": lat_ms,
+            "cluster": C, "ms_b1": timed["B=1 L=96 S=200"][1],
+            "ms_pod": timed["B=32 L=192 S=400 D=384"][1],
             "shape": "B=32 L=192 S=200 H=A=256 D=320 bf16"}
 
 
@@ -2136,7 +2258,8 @@ def main() -> int:
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name].get("library_ms"),
          **({} if name not in LIBRARY_NULL else {"library_ms_null": LIBRARY_NULL[name]}),
          **{k: v for k, v in kern[name].items()
-            if k in ("bound_all_taps_ms", "bound_full_frame_ms", "cublas_route_ms")},
+            if k in ("bound_all_taps_ms", "bound_full_frame_ms", "cublas_route_ms",
+                     "bound_latency_ms", "cluster", "ms_b1", "ms_pod")},
          "shape": kern[name]["shape"]}
         for name, (src, replaces, path) in KERNEL_META.items()]}
     log(smi)

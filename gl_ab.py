@@ -1,34 +1,38 @@
 #!/usr/bin/env python3
-"""Time the fused Griffin-Lim call (kernel 13) of one checkout of the port.
+"""Time one kernel of one checkout of the port, for an A/B in turns.
 
-    python3 gl_ab.py DIR [build]
+    python3 gl_ab.py DIR [build] [--mode gl|decoder]
 
-Runs the port of the checkout in DIR (any commit of it: only its
-``ops.gl_iteration.gl_fast_iterations`` is called) at B=32 and B=1
-(F=1000, n_fft 2048, hop 275, 12 bf16 iterations, the serving window, the
-inputs of this checkout's ``chip_smoke.py phase_gl_iteration``) and prints
-one line: the call's time (CUDA events) and the device time of each of its
-three kernels (profiler).  ``build`` builds every kernel library first.  To compare two
-versions on one card, run it in turns in one command: parent, change,
-change, parent.  Needs a CUDA device.
+Runs the port of the checkout in DIR (any commit of it) on inputs made by
+this checkout's ``chip_smoke.py`` and prints one ``AB`` line.  ``build``
+builds every kernel library of DIR first.
+
+- ``gl`` (the default): the fused Griffin-Lim call (kernel 13,
+  ``ops.gl_iteration.gl_fast_iterations``) at B=32 and B=1 (F=1000, n_fft
+  2048, hop 275, 12 bf16 iterations, the serving window, the inputs of
+  ``phase_gl_iteration``): the call's time (CUDA events) and the device
+  time of each of its three kernels (profiler).
+- ``decoder``: the fused decoder loop (kernel 5, ``ops.decoder_loop``) at
+  B=1 L=96 and B=32 L=192, 200 bf16 steps (the inputs of
+  ``phase_decoder``), CUDA events; then ``Synthesizer`` at full-width
+  ``multispeaker_vctk`` on the ``serve`` and ``serve_pallas`` paths (random
+  weights from a seed): a B=1 request and a B=32 batch at input bucket 192,
+  each the median of three host-clock runs ending in a synchronise, and
+  each one's device-busy ms (profiler, one more run).
+
+To compare two versions on one card, run it in turns in one command:
+parent, change, change, parent.  Needs a CUDA device.
 """
 
+import argparse
 import os
+import statistics
 import sys
+import time
 
 
-def main() -> int:
-    import torch
-    import chip_smoke as c          # this checkout's; it imports the port lazily
-    root = os.path.abspath(sys.argv[1])
-    os.chdir(root)
-    sys.path.insert(0, root)
+def _gl(c, torch):
     from tacotron_multispeaker_torch.ops import gl_iteration as gl
-    if not torch.cuda.is_available():
-        print("gl_ab: no CUDA device", file=sys.stderr)
-        return 1
-    if len(sys.argv) > 2:
-        c.phase_build()
     times = []
     for B, reps in ((32, 5), (1, 10)):
         wf0, mag, win = c._gl_case(B, 1000, seed=51 if B > 1 else 52)
@@ -37,7 +41,79 @@ def main() -> int:
         ms = c.cuda_time_ms(run, reps=reps)
         split, _ = c._device_split_ms(run, c.GL_KERNELS)
         times.append(f"B={B} {ms:.3f} ms " + str({k: round(v, 3) for k, v in split.items()}))
-    print(f"AB {sys.argv[1]}: " + " ".join(times), flush=True)
+    return " ".join(times)
+
+
+def _host_ms(torch, fn, reps=3):
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _busy_ms(torch, fn):
+    from torch.profiler import ProfilerActivity, profile
+    from tacotron_multispeaker_torch.train_loop import device_busy
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_busy(prof)[0]
+
+
+def _decoder(c, torch):
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.ops import decoder_loop as dl
+    from tacotron_multispeaker_torch.synthesizer import Synthesizer
+    parts = []
+    for B, L, seed in ((1, 96, 6), (32, 192, 5)):
+        args = c._decoder_case(B, L, 200, torch.bfloat16, scale=0.05, seed=seed)
+        ms = c.cuda_time_ms(lambda: dl.decoder_loop(*args), reps=5)
+        plan = getattr(dl, "last_plan", None)
+        parts.append(f"kernel B={B} L={L} S=200 {ms:.3f} ms"
+                     + (f" (C={plan[0]})" if plan else ""))
+    text, spk = c.SERVE_TEXTS[2]
+    batch = [c.SERVE_TEXTS[i % len(c.SERVE_TEXTS)][0] for i in range(32)]
+    for path in ("serve", "serve_pallas"):
+        cfg = get_config("multispeaker_vctk", c.PATHS[path])
+        syn = Synthesizer(cfg, seed=0)
+        spks = [(7 * i) % cfg.model.num_speakers for i in range(32)]
+        syn.warmup()
+        one = lambda: syn.synthesize_batch([text], [spk], pad_to=192)  # noqa: E731
+        many = lambda: syn.synthesize_batch(batch, spks, pad_to=192)  # noqa: E731
+        one()
+        many()
+        parts.append(f"{path} B=1 {_host_ms(torch, one):.2f} ms busy "
+                     f"{_busy_ms(torch, one):.2f}; B=32 {_host_ms(torch, many):.2f} ms busy "
+                     f"{_busy_ms(torch, many):.2f}")
+    return " | ".join(parts)
+
+
+def main() -> int:
+    import torch
+    import chip_smoke as c          # this checkout's; it imports the port lazily
+    ap = argparse.ArgumentParser()
+    ap.add_argument("dir")
+    ap.add_argument("build", nargs="?", choices=["build"])
+    ap.add_argument("--mode", choices=["gl", "decoder"], default="gl")
+    opts = ap.parse_args()
+    root = os.path.abspath(opts.dir)
+    os.chdir(root)
+    sys.path.insert(0, root)
+    if not torch.cuda.is_available():
+        print("gl_ab: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if opts.build:
+        from tacotron_multispeaker_torch.ops import KERNELS, cuda_build
+        cuda_build.build_all(KERNELS)
+    line = _gl(c, torch) if opts.mode == "gl" else _decoder(c, torch)
+    print(f"AB {opts.mode} {opts.dir}: {line}", flush=True)
     return 0
 
 

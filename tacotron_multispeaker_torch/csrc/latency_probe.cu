@@ -1,0 +1,100 @@
+// Latency probes behind the decoder kernel's per-step bound (not a kernel of
+// the model): chip_smoke.py phase_decoder times each launch with CUDA events
+// and divides by its count of dependent operations.
+//
+// - probe_l2_chase: one thread follows a chain of indices through a buffer
+//   that sits in L2 (loads bypass L1: ld.global.cg), one dependent load a
+//   hop -> one L2 round trip.
+// - probe_cluster_sync: one cluster of C CTAs of CTHREADS threads; an iteration
+//   stores one float into a peer's shared memory (DSMEM) and meets at a
+//   cluster barrier (arrive.release / wait.acquire), as the decoder's
+//   exchange does -> one exchange + barrier.
+// - probe_l2_stream: each of ``blocks`` CTAs of 1024 threads reads an
+//   L2-resident buffer with 16-byte loads, eight in flight a thread -> one
+//   SM's L2 bandwidth (1 block) and the card's (one block an SM).
+
+#include "cluster_common.cuh"
+
+namespace {
+
+using namespace clu;
+
+__global__ void l2_chase_kernel(const int* __restrict__ next, int hops, int* sink) {
+  int i = 0;
+  for (int h = 0; h < hops; ++h) i = __ldcg(next + i);
+  *sink = i;
+}
+
+__global__ void __launch_bounds__(CTHREADS) cluster_sync_kernel(int iters, float* sink) {
+  __shared__ float slot[CTHREADS];
+  const unsigned C = cluster_size(), k = cluster_rank();
+  slot[threadIdx.x] = 0.f;
+  cluster_sync();
+  for (int it = 0; it < iters; ++it) {
+    st_remote(slot + threadIdx.x, (k + 1 + unsigned(it)) % C, float(it));
+    cluster_sync();
+  }
+  if (threadIdx.x == 0 && k == 0) *sink = slot[0];
+}
+
+constexpr int STREAM_THREADS = 1024;
+
+__global__ void __launch_bounds__(STREAM_THREADS) l2_stream_kernel(const uint4* __restrict__ buf,
+                                                             size_t n16, int reps,
+                                                             float* sink) {
+  // eight independent 16-byte loads in flight a thread (n16 a multiple of
+  // 8 * STREAM_THREADS)
+  uint32_t acc = 0;
+  for (int r = 0; r < reps; ++r) {
+    for (size_t i = threadIdx.x; i < n16; i += 8 * STREAM_THREADS) {
+      uint4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = __ldcg(buf + i + u * STREAM_THREADS);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+    }
+  }
+  if (acc == 0x12345678u) *sink = float(acc);   // keeps the loads
+}
+
+}  // namespace
+
+extern "C" {
+
+int probe_l2_chase(const void* next, int hops, void* sink, void* stream) {
+  l2_chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(next), hops, static_cast<int*>(sink));
+  return int(cudaGetLastError());
+}
+
+int probe_cluster_sync(int C, int iters, void* sink, void* stream) {
+  if (C > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cluster_sync_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return int(err);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(C), 1, 1);
+  cfg.blockDim = dim3(CTHREADS, 1, 1);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(C);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, cluster_sync_kernel, iters,
+                                             static_cast<float*>(sink));
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+int probe_l2_stream(const void* buf, size_t n16, int reps, int blocks, void* sink,
+                    void* stream) {
+  l2_stream_kernel<<<blocks, STREAM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(buf), n16, reps, static_cast<float*>(sink));
+  return int(cudaGetLastError());
+}
+
+}  // extern "C"

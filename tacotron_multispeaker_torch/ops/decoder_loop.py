@@ -15,8 +15,10 @@ input vector and its weights to the compute dtype and sums in f32.
 
 :func:`decoder_loop` runs the plain version for CPU tensors and the CUDA
 kernel (``csrc/decoder_loop.cu``) for CUDA tensors; anything else raises.
-The kernel needs no padding: a block decodes one batch row, so ragged
-lengths and any L are handled by the mask alone.
+The kernel needs no padding: a thread-block cluster of C CTAs decodes one
+batch row, so ragged lengths and any L are handled by the mask alone.
+:func:`launch_plan` picks C from the batch, the hidden width and the
+number of clusters of each size the card can hold at once.
 """
 
 from __future__ import annotations
@@ -31,10 +33,15 @@ from ..models.helpers import feedback_frame
 
 # launches of the CUDA kernel (the plain version does not count)
 launches = 0
+# (C, co-resident clusters of C) of the last launch
+last_plan: tuple[int, int] | None = None
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-_NTHREADS = 512       # csrc/decoder_loop.cu NTHREADS
+_NTHREADS = 384       # csrc/cluster_common.cuh CTHREADS (threads of a CTA)
 _MAX_LAYERS = 4
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+_HEAD_BYTES = 2256         # csrc/decoder_loop.cu HEAD_FLOATS * 4: 21 jobs, 16 plans
+_cluster_counts: dict[tuple, dict[int, int]] = {}
 
 
 class DecoderWeights(NamedTuple):
@@ -164,8 +171,77 @@ def decoder_loop(weights: DecoderWeights, keys, memory, mask, dropout1,
                               attn_h0, dec_h0, n_steps, num_mels)
 
 
+def smem_bytes(L, A, D, H, M, P1, P2, RM, n_layers, C, vec) -> int:
+    """Shared memory one CTA of the kernel takes (csrc/decoder_loop.cu
+    ``smem_floats``: the job and plan tables, the biases and the vectors)."""
+    wmax = max(P1, P2, 2 * H, A, D, RM)
+    biases = P1 + P2 + 4 * H + 3 * n_layers * H + RM
+    floats = (_NTHREADS * (vec + 32) + 64 + biases + M + P1 + P2 + D + H * (n_layers + 7)
+              + 2 * A + (C + 2) * L + 2 * wmax)
+    return 4 * floats + _HEAD_BYTES
+
+
+def check_limits(*, L, A, D, H, M, P1, P2, RM, n_layers, vec) -> None:
+    """Raise ValueError where the kernel cannot take these widths (the
+    limits of csrc/decoder_loop.cu's source note, at C = 1, which every
+    batch can fall back to; a larger C only narrows each CTA's share)."""
+    if n_layers > _MAX_LAYERS:
+        raise ValueError(f"decoder_loop kernel: {n_layers} layers > {_MAX_LAYERS}")
+    for name, n in (("P1", P1), ("P2", P2), ("H", H), ("A", A), ("D", D), ("r*M", RM)):
+        if n % vec or n > vec * _NTHREADS:
+            raise ValueError(f"decoder_loop kernel: width {name}={n} must be a "
+                             f"multiple of {vec} and at most {vec * _NTHREADS}")
+    if 3 * H > vec * _NTHREADS:
+        raise ValueError(f"decoder_loop kernel: 3H={3 * H} (a GRU phase's gate and "
+                         f"candidate columns) must be at most {vec * _NTHREADS}")
+    if RM < M:
+        raise ValueError(f"decoder_loop kernel: frame width {RM} < num_mels={M}")
+    smem = smem_bytes(L, A, D, H, M, P1, P2, RM, n_layers, 1, vec)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"decoder_loop kernel: L={L} needs {smem} bytes of "
+                         f"shared memory (> {_SMEM_LIMIT})")
+
+
+def launch_plan(B: int, H: int, vec: int, clusters: dict) -> int:
+    """The cluster size C for a batch of B rows: the largest of 16, 8, 4, 2
+    that leaves every CTA some of the H hidden units (C <= H / vec) and of
+    which the card holds all B clusters at once (``clusters[C]``, its
+    co-resident count), else 1 (one CTA a row; the rows then run in waves)."""
+    for C in CLUSTER_SIZES[:-1]:
+        if C <= H // vec and clusters.get(C, 0) >= B:
+            return C
+    return 1
+
+
+def cluster_counts(dims: tuple, is_bf16: int, device) -> dict:
+    """{C: clusters of C CTAs the card can hold at once} for the kernel at
+    ``dims`` (B, L, A, D, H, M, P1, P2, RM, n_layers, n_steps) on ``device``
+    (cudaOccupancyMaxActiveClusters; 0 where a CTA's shared memory would not
+    fit).  Cached by widths, dtype and device."""
+    _, L, A, D, H, M, P1, P2, RM, n_layers = dims[:10]
+    key = (tuple(dims[1:10]), is_bf16, device)
+    if key not in _cluster_counts:
+        lib, counts = _lib(), {}
+        for C in CLUSTER_SIZES:
+            if smem_bytes(L, A, D, H, M, P1, P2, RM, n_layers, C,
+                          8 if is_bf16 else 4) > _SMEM_LIMIT:
+                counts[C] = 0
+                continue
+            d = (ctypes.c_int * 13)(*dims[:11], C, is_bf16)
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = lib.decoder_loop_max_clusters(ctypes.cast(d, ctypes.c_void_p),
+                                                    ctypes.byref(n))
+            cuda_build.check(err, f"decoder_loop cluster occupancy query (C={C})")
+            counts[C] = n.value
+        _cluster_counts[key] = counts
+    return _cluster_counts[key]
+
+
 def _decoder_loop_cuda(weights, keys, memory, mask, dm1, dm2, attn_h0, dec_h0,
-                       n_steps, M):
+                       n_steps, M, cluster: int | None = None):
+    """The kernel launch.  ``cluster`` forces the cluster size (kernel checks
+    only; the model's path leaves it to :func:`launch_plan`)."""
     B, L, A = keys.shape
     D = memory.shape[-1]
     H = weights.a_hc.shape[0]
@@ -176,16 +252,10 @@ def _decoder_loop_cuda(weights, keys, memory, mask, dm1, dm2, attn_h0, dec_h0,
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute dtype must be float32 or bfloat16, got {cdt}")
     vec = 16 // keys.element_size()
-    if n_layers > _MAX_LAYERS:
-        raise ValueError(f"decoder_loop kernel: {n_layers} layers > {_MAX_LAYERS}")
-    for name, n in (("P1", P1), ("P2", P2), ("H", H), ("2H", 2 * H), ("A", A),
-                    ("D", D), ("r*M", RM)):
-        if n % vec or n > vec * _NTHREADS:
-            raise ValueError(f"decoder_loop kernel: width {name}={n} must be a "
-                             f"multiple of {vec} and at most {vec * _NTHREADS}")
-    if RM < M or weights.w1.shape[0] != M:
-        raise ValueError(f"decoder_loop kernel: frame width {RM} / prenet input "
-                         f"{weights.w1.shape[0]} do not match num_mels={M}")
+    check_limits(L=L, A=A, D=D, H=H, M=M, P1=P1, P2=P2, RM=RM, n_layers=n_layers, vec=vec)
+    if weights.w1.shape[0] != M:
+        raise ValueError(f"decoder_loop kernel: prenet input {weights.w1.shape[0]} "
+                         f"does not match num_mels={M}")
     typed = [("keys", keys, cdt), ("memory", memory, cdt), ("mask", mask, torch.bool),
              ("dropout1", dm1, torch.float32), ("dropout2", dm2, torch.float32),
              ("attn_h0", attn_h0, torch.float32), ("dec_h0", dec_h0, torch.float32)]
@@ -212,21 +282,23 @@ def _decoder_loop_cuda(weights, keys, memory, mask, dm1, dm2, attn_h0, dec_h0,
             frames, align]
     for i in range(n_layers):
         flat += [w.l_xg[i], w.l_bg[i], w.l_xc[i], w.l_bc[i], w.l_hg[i], w.l_hc[i]]
-    ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
-    dims = (ctypes.c_int * 11)(B, L, A, D, H, M, P1, P2, RM, n_layers, n_steps)
-    ptrs_p, dims_p = (ctypes.cast(a, ctypes.c_void_p) for a in (ptrs, dims))
-    lib = _lib()
     is_bf16 = int(cdt == torch.bfloat16)
-    smem = lib.decoder_loop_smem_bytes(dims_p, is_bf16)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"decoder_loop kernel: L={L} needs {smem} bytes of "
-                         f"shared memory (> {_SMEM_LIMIT})")
+    dims = (B, L, A, D, H, M, P1, P2, RM, n_layers, n_steps)
+    counts = cluster_counts(dims, is_bf16, keys.device)
+    C = launch_plan(B, H, vec, counts) if cluster is None else cluster
+    if C not in CLUSTER_SIZES or counts[C] == 0:
+        raise ValueError(f"decoder_loop kernel: the card holds no cluster of {C} "
+                         f"CTAs at these widths (co-resident clusters {counts})")
+    ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
+    cdims = (ctypes.c_int * 13)(*dims, C, is_bf16)
+    ptrs_p, dims_p = (ctypes.cast(a, ctypes.c_void_p) for a in (ptrs, cdims))
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.decoder_loop_launch(ptrs_p, dims_p, is_bf16, stream)
+        err = _lib().decoder_loop_launch(ptrs_p, dims_p, stream)
     cuda_build.check(err, "decoder_loop kernel launch")
-    global launches
+    global launches, last_plan
     launches += 1
+    last_plan = (C, counts[C])
     return frames, align
 
 
@@ -234,9 +306,11 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("decoder_loop")
     if not getattr(lib, "_typed", False):
         lib.decoder_loop_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                            ctypes.c_int, ctypes.c_void_p]
+                                            ctypes.c_void_p]
         lib.decoder_loop_launch.restype = ctypes.c_int
-        lib.decoder_loop_smem_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.decoder_loop_smem_bytes.argtypes = [ctypes.c_void_p]
         lib.decoder_loop_smem_bytes.restype = ctypes.c_size_t
+        lib.decoder_loop_max_clusters.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.decoder_loop_max_clusters.restype = ctypes.c_int
         lib._typed = True
     return lib

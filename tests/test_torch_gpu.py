@@ -10,6 +10,7 @@ The numpy input cases are shared with the CPU tests of
 ``test_torch_ops.py``.
 """
 
+import ctypes
 import math
 from unittest import mock
 
@@ -168,23 +169,32 @@ def test_bigru_kernel_matches_plain_on_card(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [96, 384])
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16])
 @pytest.mark.parametrize("dtype,ftol,atol", [(torch.float32, 1e-4, 1e-5),
                                             (torch.bfloat16, 5e-2, 1e-3)])
-def test_decoder_loop_kernel_matches_plain_on_card(cuda, dtype, ftol, atol):
-    # L=13 is not a multiple of anything the kernel tiles by; f32 differs
+def test_decoder_loop_kernel_matches_plain_on_card(cuda, dtype, ftol, atol, cluster, D):
+    # L=13 is not a multiple of anything the kernel tiles by, and at C=16
+    # some CTAs hold no position, no prenet or context columns; f32 differs
     # only in sum order over 5 contractive steps; bf16 flips roundings of
     # matmul inputs -> frames 5e-2; energies and softmax stay f32 on both
-    # sides, so alignments 1e-3 (about 1/75 of a weight at L=13)
+    # sides, so alignments 1e-3 (about 1/75 of a weight at L=13).  cluster
+    # None: the launch plan's C; else C forced through the launcher.
     rs = np.random.RandomState(5)
-    w, arrays, n_steps, M = decoder_case(rs, B=3, L=13, n_steps=5)
+    w, arrays, n_steps, M = decoder_case(rs, B=3, L=13, n_steps=5, D=D)
     tw = torch_weights(w, cuda).cast(dtype)
     targs = [torch.from_numpy(a).to(cuda) for a in arrays]
     targs[0], targs[1] = targs[0].to(dtype), targs[1].to(dtype)
     before = tdl.launches
-    f_k, a_k = tdl.decoder_loop(tw, *targs, n_steps, M)
+    if cluster is None:
+        f_k, a_k = tdl.decoder_loop(tw, *targs, n_steps, M)
+    else:
+        f_k, a_k = tdl._decoder_loop_cuda(tw, *targs, n_steps, M, cluster=cluster)
     f_r, a_r = tdl.decoder_loop_reference(tw, *targs, n_steps, M)
     torch.cuda.synchronize()
     assert tdl.launches == before + 1
+    if cluster is not None:
+        assert tdl.last_plan[0] == cluster
     assert (f_k - f_r).abs().max().item() <= ftol
     assert (a_k - a_r).abs().max().item() <= atol
 
@@ -210,7 +220,22 @@ def test_kernels_raise_outside_their_limits_on_card(cuda):
     targs = [torch.from_numpy(a).to(cuda) for a in arrays]
     with pytest.raises(ValueError, match="multiple of 4"):
         tdl.decoder_loop(torch_weights(w, cuda), *targs, n_steps, M)   # H=30
+    # f32 H=684: 2H fits a width, but a GRU phase's 3H = 2052 columns (513
+    # groups of 4) exceed one group a thread at C = 1
+    w, arrays, n_steps, M = decoder_case(rs, B=2, L=7, n_steps=3, H=684, A=16, D=24)
+    targs = [torch.from_numpy(a).to(cuda) for a in arrays]
+    dl_before = tdl.launches
+    with pytest.raises(ValueError, match="3H=2052"):
+        tdl.decoder_loop(torch_weights(w, cuda), *targs, n_steps, M)
+    assert tdl.launches == dl_before
     assert (tgs.launches, tgs.gru_launches, tgs.gru_bwd_launches) == before
+    # the wrapper's shared-memory count is the kernel's own
+    for C in tdl.CLUSTER_SIZES:
+        for is_bf16, vec in ((0, 4), (1, 8)):
+            dims = (ctypes.c_int * 13)(32, 192, 256, 384, 256, 80, 256, 128, 400, 2, 400, C,
+                                     is_bf16)
+            got = tdl._lib().decoder_loop_smem_bytes(ctypes.cast(dims, ctypes.c_void_p))
+            assert got == tdl.smem_bytes(192, 256, 384, 256, 80, 256, 128, 400, 2, C, vec)
 
 
 @pytest.mark.gpu

@@ -120,6 +120,53 @@ def test_wrappers_raise_on_bad_inputs():
         tdl.decoder_loop(torch_weights(w), *targs, n_steps, M)
 
 
+@pytest.mark.parametrize("name,D", [("tiny", 64), ("single_speaker", 256),
+                                    ("multispeaker_vctk", 320), ("pod_synthesis", 384)])
+def test_decoder_loop_limits_take_every_preset(name, D):
+    # the widths each preset gives the fused decoder kernel, at its longest
+    # input and in both compute types
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.models.tacotron import _speaker_dim
+    cfg = get_config(name)
+    m, M = cfg.model, cfg.audio.num_mels
+    assert m.encoder_depth + _speaker_dim(cfg, "memory") == D
+    for vec in (4, 8):
+        tdl.check_limits(L=cfg.train.max_input_length, A=m.attention_depth, D=D,
+                         H=m.decoder_depth, M=M, P1=m.prenet_depths[0],
+                         P2=m.prenet_depths[1], RM=m.outputs_per_step * M,
+                         n_layers=m.decoder_layers, vec=vec)
+
+
+def test_decoder_loop_limits_raise():
+    ok = dict(L=192, A=256, D=320, H=256, M=80, P1=256, P2=128, RM=400, n_layers=2, vec=8)
+    tdl.check_limits(**ok)
+    for bad, match in (({"n_layers": 5}, "layers"), ({"D": 324}, "D=324"),
+                       ({"P1": 4104}, "P1=4104"), ({"H": 684, "vec": 4}, "3H=2052"),
+                       ({"RM": 40}, "num_mels"), ({"L": 20000}, "shared memory")):
+        with pytest.raises(ValueError, match=match):
+            tdl.check_limits(**{**ok, **bad})
+
+
+# a plausible answer of the card: co-resident clusters by size
+_COUNTS = {16: 7, 8: 16, 4: 33, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize("B,want", [(1, 16), (3, 16), (32, 4), (256, 1)])
+def test_decoder_loop_launch_plan(B, want):
+    # the largest C whose B clusters the card holds at once; 1 past that
+    assert tdl.launch_plan(B, 256, 8, _COUNTS) == want
+    assert tdl.launch_plan(B, 256, 4, _COUNTS) == want
+
+
+def test_decoder_loop_launch_plan_caps():
+    # no C above the hidden width's 16-byte groups (tiny, bf16: 64 / 8)
+    assert tdl.launch_plan(1, 64, 8, _COUNTS) == 8
+    assert tdl.launch_plan(1, 64, 4, _COUNTS) == 16
+    # sizes the card cannot hold are skipped
+    assert tdl.launch_plan(1, 256, 8, {**_COUNTS, 16: 0, 8: 0}) == 4
+    assert tdl.launch_plan(1, 256, 8, {1: 132}) == 1
+
+
 def _close(a, b, tol, what=""):
     """max |a - b| <= tol · max(|b|, 1e-6) (relative to b's peak)."""
     a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
