@@ -16,7 +16,10 @@ Phases (no failure is caught; any exception exits non-zero):
    call computes the same function, that call (``library_ms``).  The
    decoder loop (kernel 5) is held at every thread-block-cluster size the
    card takes, and its per-step latency bound is computed from latencies
-   probed on the card (``csrc/latency_probe.cu``).
+   probed on the card (``csrc/latency_probe.cu``).  The teacher-forced
+   backward (kernel 8) is held whole and its prologue launch alone, the two
+   launches timed apart, its scan's per-step latency bound from the same
+   probe.
 4. Checks ``generate`` at full-width ``multispeaker_vctk``, dropout off: in
    float32 on the card against the plain path on the CPU (the default and
    the location-attention path), and in bfloat16 (the serving precision)
@@ -127,6 +130,7 @@ def _counters():
             "teacher_decoder_fwd": (teacher_decoder, "fwd_launches"),
             "dkeys": (teacher_decoder, "dkeys_launches"),
             "teacher_decoder_bwd": (teacher_decoder, "bwd_launches"),
+            "teacher_decoder_bwd_remat": (teacher_decoder, "bwd_remat_launches"),
             "wgrad": (wgrad, "launches"),
             "conv_bank": (conv_bank, "launches"),
             "attention_step": (attention_step, "launches"),
@@ -518,6 +522,38 @@ def _decoder_latency_bound_ms(args, C, coresident, probe):
     return S * math.ceil(B / coresident) * step_s * 1e3
 
 
+def _teacher_bwd_phases(n_layers, hoisted=True):
+    """Dependent phases of a step of kernel 8's reverse scan: per layer two
+    products (da_c @ hc^T; dg @ [w_r^T | (hg^T; 0)]), then [dha_loc |
+    dctx_x], dp, the softmax sum, dq, dq @ wq^T and the attention GRU's two;
+    before the prologue took the carry-free products, six a layer and 14."""
+    return 2 * n_layers + 7 if hoisted else 6 * n_layers + 14
+
+
+def _teacher_bwd_step_bytes(H, A, D, L, N, esize, hoisted=True):
+    """Weight, key and memory bytes one batch row's step of kernel 8's scan
+    reads (each product's whole weight matrix, once)."""
+    if hoisted:
+        elems = N * 7 * H * H + H * (H + D) + A * H + H * H + 3 * H * (H + D) + L * D + L * A
+    else:
+        elems = N * 12 * H * H + 7 * H * H + 8 * H * D + 2 * H * A + 3 * L * D + L * A
+    return elems * esize
+
+
+def _teacher_bwd_latency_bound_ms(S, B, phases, step_bytes, probe, n_sm):
+    """Kernel 8's scan's per-step latency bound: each of ``phases``
+    dependent phases waits one L2 round trip, and a row streams
+    ``step_bytes`` through its SM's L2 port (or all running rows share the
+    card's L2 bandwidth, whichever is slower); one block a row, rows beyond
+    the SMs in later waves."""
+    import math
+    running = min(B, n_sm)
+    stream_s = max(step_bytes / probe["sm_l2_bytes_s"],
+                   running * step_bytes / probe["card_l2_bytes_s"])
+    step_s = phases * probe["l2_round_trip_us"] * 1e-6 + stream_s
+    return S * math.ceil(B / n_sm) * step_s * 1e3
+
+
 def phase_decoder():
     import torch
     from tacotron_multispeaker_torch.ops import decoder_loop as dl
@@ -744,6 +780,42 @@ class plain_kernels:
             setattr(mod, name, fn)
 
 
+def _teacher_bwd_args(fwd_args, w, states, seed):
+    """The arguments of ``teacher_decoder_bwd`` from a forward's states, as
+    ``teacher_decoder_backward`` shifts them, with random cotangents."""
+    import torch
+    png, pnc, h0a, h0d, keys, memory, mask = fwd_args
+    xs, align, ha, hds = states
+    shift = lambda a, a0: torch.cat([a0[None].to(a.dtype), a[:-1]]).contiguous()
+    hap = shift(ha, h0a)
+    hdps = tuple(shift(hds[i], h0d[i]) for i in range(len(hds)))
+    pp = shift(align, torch.zeros_like(align[0]))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dxs = torch.randn(tuple(xs.shape), generator=g, device="cuda")
+    dal = torch.randn(tuple(align.shape), generator=g, device="cuda") * 0.1
+    return (png, pnc, ha, hap, tuple(hds), hdps, xs, align, pp, dxs, dal, w, keys, memory,
+            mask)
+
+
+def _remat_errors(out, ref):
+    """Each prologue output relative to its peak: every GRU's r, u and c,
+    q, ctx, the layer inputs and r*h_prev."""
+    xin, rh, ruc, rh_a, ctx, q = out
+    xin_r, rh_r, ruc_r, rh_a_r, ctx_r, q_r = ref
+    H = rh_a.shape[-1]
+    errs = {}
+    for g in range(len(ruc_r)):
+        name = "attn" if g == len(ruc_r) - 1 else f"layer{g}"
+        for k, part in enumerate("ruc"):
+            sl = slice(k * H, (k + 1) * H)
+            errs[f"{name}.{part}"] = _rel_err(ruc[g][..., sl], ruc_r[g][..., sl])
+    errs.update(q=_rel_err(q, q_r), ctx=_rel_err(ctx, ctx_r), rh_a=_rel_err(rh_a, rh_a_r))
+    for i in range(len(xin_r)):
+        errs[f"xin{i}"] = _rel_err(xin[i], xin_r[i])
+        errs[f"rh{i}"] = _rel_err(rh[i], rh_r[i])
+    return errs
+
+
 def phase_teacher(bigru_wgrad_err):
     import torch
     from tacotron_multispeaker_torch.ops import teacher_decoder as td
@@ -757,7 +829,15 @@ def phase_teacher(bigru_wgrad_err):
     # backward, every gradient relative to its peak: f32 sum order (weight
     # gradients over S*B rows); bf16 flipped roundings carried back
     btol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    # the prologue alone, each output relative to its peak.  f32: sum order
+    # only, no recurrence (K <= D + H terms).  bf16: both sides round the
+    # same inputs and multiply exactly; but an order difference can flip the
+    # bf16 rounding of an intermediate the next product rounds again
+    # (ctx_prev, r*h_prev): one ulp (2^-8 relative) of ctx_prev (|.| up to
+    # ~4 here) times a weight (|.| up to ~0.2) moves a pre-activation by
+    # ~3e-3 of the gates' peak (1)
+    rtol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    worst = {"fwd": 0.0, "bwd": 0.0, "remat": 0.0}
     for dtype, S in ((torch.float32, 12), (torch.bfloat16, 20)):
         w, args = _teacher_case(B, L, S, dtype, seed=21)
         png, pnc, h0a, h0d, keys, memory, mask = args
@@ -774,7 +854,17 @@ def phase_teacher(bigru_wgrad_err):
         if not (all(e <= xt for e in errs.values()) and e_al <= at):
             raise AssertionError(f"teacher_decoder_fwd disagrees with its plain version")
         worst["fwd"] = max(worst["fwd"], *errs.values(), e_al)
-        # backward from the plain forward's states, random cotangents
+        # the backward's prologue alone, from the plain forward's states
+        bargs = _teacher_bwd_args(args, w, ref, seed=22)
+        errs = _remat_errors(td.teacher_bwd_remat(*bargs), td.teacher_bwd_remat_reference(*bargs))
+        torch.cuda.synchronize()
+        log(f"[teacher_bwd_remat] B={B} L={L} S={S} {str(dtype)[6:]}: max|kernel-plain|/"
+            f"max|plain| " + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (tol {rtol[dtype]:.0e})")
+        if not all(e <= rtol[dtype] for e in errs.values()):
+            raise AssertionError("teacher backward prologue disagrees with its plain version")
+        worst["remat"] = max(worst["remat"], *errs.values())
+        # the whole backward from the plain forward's states, random cotangents
         g = torch.Generator(device="cuda").manual_seed(22)
         xs, align, ha, hds = ref
         dxs = torch.randn(tuple(xs.shape), generator=g, device="cuda")
@@ -840,29 +930,64 @@ def phase_teacher(bigru_wgrad_err):
                                      "error": "xs/states relative to peak, align absolute"}
     log(f"[teacher_fwd] B={B} L={L} S={S} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"bound {bound[0]:.4f} ms ({bound[1]})")
-    shift = lambda a, a0: torch.cat([a0[None].to(a.dtype), a[:-1]]).contiguous()
-    hap = shift(ha, h0a)
-    hdps = tuple(shift(hds[i], h0d[i]) for i in range(N))
-    pp = shift(align, torch.zeros_like(align[0]))
-    dxs = torch.randn(tuple(xs.shape), generator=g, device="cuda")
-    dal = torch.randn(tuple(align.shape), generator=g, device="cuda") * 0.1
-    bargs = (png, pnc, ha, hap, hds, hdps, xs, align, pp, dxs, dal, w, keys, memory, mask)
-    ms = cuda_time_ms(lambda: td._bwd_kernel(*bargs), reps=3)
+    bargs = _teacher_bwd_args(args, w, (xs, align, ha, hds), seed=25)
+    png, pnc, ha, hap, hds, hdps, xs, align, pp, dxs, dal = bargs[:11]
+    run = lambda: td._bwd_kernel(*bargs)
+    ms = cuda_time_ms(run, reps=3)
+    split, split_n = _device_split_ms(run, ("teacher_bwd_remat", "teacher_bwd_scan"))
     plain_ms = cuda_time_ms(lambda: td.teacher_decoder_bwd_reference(*bargs), reps=1)
-    outs, streams = td._bwd_kernel(*bargs)
+    outs, streams = run()
     macs = (N * 12 * H * H + H * H + L * D + 4 * H * D + L * D + 2 * H * A + L * D
             + D * 4 * H + 6 * H * H)
     bound = _bound_ms(_nbytes(png, pnc, ha, hap, *hds, *hdps, xs, align, pp, dxs, dal, keys,
                               memory, mask, *wts, *outs, *streams),
                       bf16_flops=2 * S * B * macs, f32_flops=S * B * 5 * L * A)
+    # the scan's per-step latency bound, and the one of the design before
+    # the prologue (every product on the chain), from this card's latencies
+    probe = _latency_probe((1,))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    lat = {hoisted: _teacher_bwd_latency_bound_ms(
+        S, B, _teacher_bwd_phases(N, hoisted),
+        _teacher_bwd_step_bytes(H, A, D, L, N, 2, hoisted), probe, n_sm)
+        for hoisted in (True, False)}
     result["teacher_decoder_bwd"] = {"max_abs_err": worst["bwd"], "ms": ms,
                                      "plain_ms": plain_ms, "bound_ms": bound[0],
-                                     "bound_by": bound[1],
+                                     "bound_by": bound[1], "bound_latency_ms": lat[True],
+                                     "ms_remat": split["teacher_bwd_remat"],
+                                     "ms_scan": split["teacher_bwd_scan"],
                                      "shape": f"B={B} L={L} S={S} H=A={H} D={D} bf16",
                                      "error": "max |kernel - plain| / max |plain| over every "
                                               "gradient of the backward"}
-    log(f"[teacher_bwd] B={B} L={L} S={S} bf16: kernel {ms:.3f} ms, plain (with its weight "
-        f"gradients) {plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    log(f"[teacher_bwd] B={B} L={L} S={S} bf16: kernel (prologue + scan) {ms:.3f} ms, device "
+        f"{json.dumps({k: round(v, 3) for k, v in split.items()})} ms ({json.dumps(split_n)} "
+        f"launches), plain (with its weight gradients) {plain_ms:.3f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
+    log(f"[teacher_bwd] scan latency bound {lat[True]:.3f} ms ({_teacher_bwd_phases(N)} phases "
+        f"a step, {_teacher_bwd_step_bytes(H, A, D, L, N, 2) / 1e6:.2f} MB a row's step; "
+        f"{100 * lat[True] / split['teacher_bwd_scan']:.1f} % of the scan's time); with every "
+        f"product on the chain {lat[False]:.3f} ms ({_teacher_bwd_phases(N, False)} phases, "
+        f"{_teacher_bwd_step_bytes(H, A, D, L, N, 2, False) / 1e6:.2f} MB); probe: L2 round "
+        f"trip {probe['l2_round_trip_us']:.3f} us, one SM's L2 read "
+        f"{probe['sm_l2_bytes_s'] / 1e9:.1f} GB/s, the card's "
+        f"{probe['card_l2_bytes_s'] / 1e9:.1f} GB/s")
+    # the prologue alone: its time, plain time and product bound (inputs read
+    # once, outputs written once; the products in bf16)
+    r_ms = cuda_time_ms(lambda: td._remat_kernel(*bargs), reps=5)
+    r_plain = cuda_time_ms(lambda: td.teacher_bwd_remat_reference(*bargs), reps=2)
+    xin, rh, ruc, rh_a, ctx, q = td._remat_kernel(*bargs)
+    r_macs = N * 6 * H * H + 2 * L * D + 3 * H * (D + H) + H * A
+    r_bound = _bound_ms(_nbytes(png, pnc, ha, hap, *hds, *hdps, xs, align, pp, memory,
+                                w.a_hg, w.a_hc, w.wq, w.w_ctx, *w.w_r, *w.b_r, *w.hg, *w.hc,
+                                xin, rh, ruc, rh_a, ctx, q),
+                        bf16_flops=2 * S * B * r_macs)
+    result["teacher_decoder_bwd_remat"] = {
+        "max_abs_err": worst["remat"], "ms": r_ms, "plain_ms": r_plain,
+        "bound_ms": r_bound[0], "bound_by": r_bound[1],
+        "shape": f"S*B={S * B} rows, H=A={H} D={D} L={L} bf16",
+        "error": "max |kernel - plain| / max |plain| over each GRU's r, u, c, q, ctx, the "
+                 "layer inputs and r*h_prev"}
+    log(f"[teacher_bwd_remat] S*B={S * B} rows bf16: kernel {r_ms:.3f} ms, plain "
+        f"{r_plain:.3f} ms, bound {r_bound[0]:.4f} ms ({r_bound[1]})")
     # its weight-gradient reduction (one grouped wgrad launch, 11 products)
     problems = td._weight_grad_problems(ha, hap, hdps, outs, streams)
     w_err = _check_wgrad(problems, f"teacher backward, {len(problems)} products over "
@@ -1512,6 +1637,7 @@ def phase_train_bf16():
 TRAIN_LAUNCHES = {"bigru_scan": 2, "decoder_loop": 0, "bigru_scan_bwd": 2,
                   "gru_scan": 0, "gru_scan_bwd": 0,
                   "teacher_decoder_fwd": 1, "dkeys": 1, "teacher_decoder_bwd": 1,
+                  "teacher_decoder_bwd_remat": 1,
                   "wgrad": 3, "conv_bank": 0, "attention_step": 0,
                   "attention_step_partial": 0, "overlap_add": 0, "gl_iteration": 0}
 
@@ -2183,6 +2309,9 @@ KERNEL_META = {
               "tacotron_multispeaker_tpu/ops/teacher_decoder.py:298", "train"),
     "teacher_decoder_bwd": ("tacotron_multispeaker_torch/csrc/teacher_decoder_bwd.cu",
                             "tacotron_multispeaker_tpu/ops/teacher_decoder.py:498", "train"),
+    "teacher_decoder_bwd_remat": ("tacotron_multispeaker_torch/csrc/teacher_decoder_bwd.cu",
+                                  "tacotron_multispeaker_tpu/ops/teacher_decoder.py:498",
+                                  "train"),
     "wgrad": ("tacotron_multispeaker_torch/csrc/wgrad.cu",
               "tacotron_multispeaker_tpu/ops/teacher_decoder.py:498", "train"),
     "conv_bank": ("tacotron_multispeaker_torch/csrc/conv_bank.cu",
@@ -2206,6 +2335,8 @@ LIBRARY_NULL = {
     "teacher_decoder_fwd": "no one PyTorch call runs the attention decoder scan",
     "dkeys": "no one PyTorch call computes this tanh-derivative reduction",
     "teacher_decoder_bwd": "no one PyTorch call runs the decoder scan's backward",
+    "teacher_decoder_bwd_remat": "no one PyTorch call rebuilds GRU gate values and the "
+                                 "attention context from saved states",
     "wgrad": "part of the backward kernels (rounded factors, grouped); a matmul is not "
              "the kernel's function",
     "attention_step": "scaled_dot_product_attention is dot-product attention; no one "
@@ -2259,7 +2390,8 @@ def main() -> int:
          **({} if name not in LIBRARY_NULL else {"library_ms_null": LIBRARY_NULL[name]}),
          **{k: v for k, v in kern[name].items()
             if k in ("bound_all_taps_ms", "bound_full_frame_ms", "cublas_route_ms",
-                     "bound_latency_ms", "cluster", "ms_b1", "ms_pod")},
+                     "bound_latency_ms", "cluster", "ms_b1", "ms_pod", "ms_remat",
+                     "ms_scan")},
          "shape": kern[name]["shape"]}
         for name, (src, replaces, path) in KERNEL_META.items()]}
     log(smi)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of one checkout of the port, for an A/B in turns.
 
-    python3 gl_ab.py DIR [build] [--mode gl|decoder]
+    python3 gl_ab.py DIR [build] [--mode gl|decoder|teacher]
 
 Runs the port of the checkout in DIR (any commit of it) on inputs made by
 this checkout's ``chip_smoke.py`` and prints one ``AB`` line.  ``build``
@@ -19,6 +19,15 @@ builds every kernel library of DIR first.
   weights from a seed): a B=1 request and a B=32 batch at input bucket 192,
   each the median of three host-clock runs ending in a synchronise, and
   each one's device-busy ms (profiler, one more run).
+- ``teacher``: the teacher-forced backward (kernel 8,
+  ``ops.teacher_decoder._bwd_kernel``) at B=32 L=192 S=200 H=A=256 D=320
+  bf16 (the inputs of ``phase_teacher``): its time (CUDA events) and the
+  device time of its launches (profiler: ``teacher_bwd`` is every launch,
+  ``remat`` and ``scan`` the two of the prologue design); then the bare
+  train step at full-width ``multispeaker_vctk`` B=32 L=192 T=1000 bf16
+  (``training.make_train_step``, random weights from a seed, the batch of
+  ``phase_train``): the median of three host-clock steps ending in a
+  synchronise, and one more step's device-busy ms (profiler).
 
 To compare two versions on one card, run it in turns in one command:
 parent, change, change, parent.  Needs a CUDA device.
@@ -93,13 +102,51 @@ def _decoder(c, torch):
     return " | ".join(parts)
 
 
+def _teacher(c, torch):
+    from tacotron_multispeaker_torch import training
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.ops import teacher_decoder as td
+    B, L, S = 32, 192, 200
+    w, args = c._teacher_case(B, L, S, torch.bfloat16, seed=24)
+    png, pnc, h0a, h0d, keys, memory, mask = args
+    xs, align, ha, hds = td.teacher_decoder_fwd(png, pnc, h0a, h0d, w, keys, memory, mask)
+    shift = lambda a, a0: torch.cat([a0[None].to(a.dtype), a[:-1]]).contiguous()  # noqa: E731
+    g = torch.Generator(device="cuda").manual_seed(25)
+    bargs = (png, pnc, ha, shift(ha, h0a), tuple(hds),
+             tuple(shift(hds[i], h0d[i]) for i in range(len(hds))), xs, align,
+             shift(align, torch.zeros_like(align[0])),
+             torch.randn(tuple(xs.shape), generator=g, device="cuda"),
+             torch.randn(tuple(align.shape), generator=g, device="cuda") * 0.1,
+             w, keys, memory, mask)
+    run = lambda: td._bwd_kernel(*bargs)  # noqa: E731
+    ms = c.cuda_time_ms(run, reps=3)
+    split, _ = c._device_split_ms(run, ("teacher_bwd", "teacher_bwd_remat", "teacher_bwd_scan"))
+    parts = [f"kernel 8 B={B} L={L} S={S} {ms:.3f} ms "
+             + str({k: round(v, 3) for k, v in split.items()})]
+    del bargs, xs, align, ha, hds
+    cfg = get_config("multispeaker_vctk")
+    model, state = training.create_train_state(cfg, seed=0)
+    step = training.make_train_step(cfg, model)
+    batch = c._train_batch(cfg, B, L, 1000, seed=5, device="cuda")
+    holder = [state]
+
+    def one():
+        holder[0] = step(holder[0], *batch)[0]
+
+    one()
+    one()
+    parts.append(f"train step B={B} {_host_ms(torch, one):.2f} ms busy "
+                 f"{_busy_ms(torch, one):.2f}")
+    return " | ".join(parts)
+
+
 def main() -> int:
     import torch
     import chip_smoke as c          # this checkout's; it imports the port lazily
     ap = argparse.ArgumentParser()
     ap.add_argument("dir")
     ap.add_argument("build", nargs="?", choices=["build"])
-    ap.add_argument("--mode", choices=["gl", "decoder"], default="gl")
+    ap.add_argument("--mode", choices=["gl", "decoder", "teacher"], default="gl")
     opts = ap.parse_args()
     root = os.path.abspath(opts.dir)
     os.chdir(root)
@@ -112,7 +159,7 @@ def main() -> int:
     if opts.build:
         from tacotron_multispeaker_torch.ops import KERNELS, cuda_build
         cuda_build.build_all(KERNELS)
-    line = _gl(c, torch) if opts.mode == "gl" else _decoder(c, torch)
+    line = {"gl": _gl, "decoder": _decoder, "teacher": _teacher}[opts.mode](c, torch)
     print(f"AB {opts.mode} {opts.dir}: {line}", flush=True)
     return 0
 

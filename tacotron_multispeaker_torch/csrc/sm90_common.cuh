@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads, shared-memory
 // matrix descriptors and the bf16 warpgroup product (wgmma) with f32 sums.
 //
+// * fence_proxy_async: shared-memory tiles that threads wrote become
+//   visible to wgmma.
 // * mbarriers: mbar_init / mbar_expect_tx / mbar_arrive / mbar_wait (phase
 //   parity as PTX defines it: wait(p) returns once the phase of parity p
 //   has completed; a wait of seconds traps).
@@ -22,7 +24,8 @@
 // * Host side: make_map, a 3-D bf16 TMA tensor map (cuTensorMapEncodeTiled,
 //   fetched through the runtime, so a library needs no -lcuda).
 //
-// csrc/conv_bank.cu and csrc/gl_iteration.cu include it (their bf16 paths).
+// csrc/conv_bank.cu, csrc/gl_iteration.cu (their bf16 paths) and
+// csrc/teacher_decoder_bwd.cu (its bf16 prologue) include it.
 
 #pragma once
 
@@ -85,6 +88,12 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes,
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands that threads, not TMA, wrote)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

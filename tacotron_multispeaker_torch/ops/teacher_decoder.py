@@ -6,9 +6,13 @@ Port of ``tacotron_multispeaker_tpu/ops/teacher_decoder.py``:
 * forward ``_teacher_decoder_fwd_pallas`` → ``csrc/teacher_decoder_fwd.cu``
   (:func:`teacher_decoder_fwd`, plain :func:`teacher_decoder_fwd_reference`);
 * backward ``_teacher_decoder_bwd_pallas`` → ``csrc/teacher_decoder_bwd.cu``
-  (:func:`teacher_decoder_bwd`, plain :func:`teacher_decoder_bwd_reference`),
-  whose weight gradients ``csrc/wgrad.cu`` reduces from the per-step factors
-  the kernel streams out;
+  (:func:`teacher_decoder_bwd`, plain :func:`teacher_decoder_bwd_reference`):
+  two launches, the carry-free prologue over all S·B rows
+  (:func:`teacher_bwd_remat`, plain :func:`teacher_bwd_remat_reference`:
+  the forward's gate values, context and query, rebuilt from the saved
+  states), then the reverse-time scan of the gradient chain alone; the
+  weight gradients ``csrc/wgrad.cu`` reduces from the per-step factors both
+  launches stream out;
 * ``_dkeys_pallas`` → ``csrc/dkeys.cu`` (:func:`dkeys`, plain
   :func:`dkeys_reference`), which also sums ``dv``;
 * the ``teacher_decoder`` custom VJP → :class:`TeacherDecoder`, a
@@ -43,8 +47,9 @@ import torch
 from . import cuda_build, wgrad
 
 # launches of the CUDA kernels (the plain versions do not count)
-fwd_launches = 0      # csrc/teacher_decoder_fwd.cu
-bwd_launches = 0      # csrc/teacher_decoder_bwd.cu
+fwd_launches = 0          # csrc/teacher_decoder_fwd.cu
+bwd_launches = 0          # csrc/teacher_decoder_bwd.cu, the reverse-time scan
+bwd_remat_launches = 0    # csrc/teacher_decoder_bwd.cu, the prologue before it
 dkeys_launches = 0    # csrc/dkeys.cu
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
@@ -156,13 +161,54 @@ def teacher_decoder_reference(png, pnc, h0a, h0d, weights, keys, memory, mask):
     return teacher_decoder_fwd_reference(png, pnc, h0a, h0d, weights, keys, memory, mask)[:2]
 
 
-def _gru_bwd(dht, xg, xc, hp, whg, whc, H, rnd):
-    """Rematerialise a legacy-GRU step and back-propagate through it:
-    (dg_pre [B, 2H], da_c [B, H], dh_prev, rh = r*h_prev)."""
+def _gru_remat(xg, xc, hp, whg, whc, H, rnd):
+    """A legacy-GRU step's forward values from its input sums and h_prev:
+    ([r | u | c], rh = r*h_prev)."""
     g = torch.sigmoid(xg + rnd(hp) @ whg)
-    r, u = g[:, :H], g[:, H:]
+    r, u = g[..., :H], g[..., H:]
     rh = r * hp
     c = torch.tanh(xc + rnd(rh) @ whc)
+    return torch.cat([r, u, c], dim=-1), rh
+
+
+def teacher_bwd_remat_reference(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign,
+                                weights: TeacherDecoderWeights, keys, memory, mask):
+    """Plain carry-free prologue of the backward, batched over all S·B rows
+    (the values the Pallas ``_bwd_kernel`` rematerialises inside its scan;
+    none of them depends on a reverse-time carry).  Takes the arguments of
+    :func:`teacher_decoder_bwd` and returns (xin, rh, ruc, rh_a, ctx, q):
+    xin N × [S, B, H] each layer's input x_{i-1} = x_i − h_i, rh N × [S, B,
+    H] its r·h_prev, ruc N+1 × [S, B, 3H] each GRU's [r | u | c] (the
+    attention GRU's last), rh_a [S, B, H], ctx = p_t @ memory [S, B, D] and
+    q = ha @ wq [S, B, A], all f32."""
+    H = png.shape[-1] // 2
+    cdt = keys.dtype
+    rnd = lambda x: x.to(cdt).float()
+    w = _plain_weights(weights, cdt)
+    n_layers = len(w.w_r)
+    mem_f = memory.float()
+    xin, rh, ruc = [None] * n_layers, [None] * n_layers, [None] * (n_layers + 1)
+    x = xs.float()
+    for i in range(n_layers - 1, -1, -1):
+        x = x - hds[i].float()
+        xin[i] = x
+        xgc = rnd(x) @ w.w_r[i] + w.b_r[i]
+        ruc[i], rh[i] = _gru_remat(xgc[..., :2 * H], xgc[..., 2 * H:], hdps[i].float(),
+                                   w.hg[i], w.hc[i], H, rnd)
+    per_row = lambda a: (rnd(a.float()).transpose(0, 1) @ mem_f).transpose(0, 1)
+    ctx = per_row(p).contiguous()                                   # [S, B, D]
+    cb_prev = rnd(per_row(pp)) @ w.w_ctx                            # [S, B, 4H]
+    ruc[n_layers], rh_a = _gru_remat(png.float() + cb_prev[..., H:3 * H],
+                                     pnc.float() + cb_prev[..., 3 * H:], hap.float(),
+                                     w.a_hg, w.a_hc, H, rnd)
+    q = rnd(ha.float()) @ w.wq
+    return tuple(xin), tuple(rh), tuple(ruc), rh_a, ctx, q
+
+
+def _gru_bwd(dht, ruc, hp, whg, whc, H, rnd):
+    """Back-propagate through a legacy-GRU step given its forward values
+    ruc = [r | u | c]: (dg_pre [B, 2H], da_c [B, H], dh_prev)."""
+    r, u, c = ruc[:, :H], ruc[:, H:2 * H], ruc[:, 2 * H:]
     dc = dht * (1.0 - u)
     du = dht * (hp - c)
     dac = dc * (1.0 - c * c)
@@ -170,12 +216,14 @@ def _gru_bwd(dht, xg, xc, hp, whg, whc, H, rnd):
     dr = drh * hp
     dg = torch.cat([dr * r * (1.0 - r), du * u * (1.0 - u)], dim=-1)
     dh_prev = dht * u + drh * r + rnd(dg) @ whg.t()
-    return dg, dac, dh_prev, rh
+    return dg, dac, dh_prev
 
 
 def teacher_decoder_bwd_reference(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign,
                                   weights: TeacherDecoderWeights, keys, memory, mask):
-    """Plain reverse-time backward with the Pallas ``_bwd_kernel``'s math.
+    """Plain reverse-time backward with the Pallas ``_bwd_kernel``'s math, in
+    the kernel pair's two parts: :func:`teacher_bwd_remat_reference`, then
+    the scan of the carries.
 
     ``hap``/``hdps``/``pp`` are ``ha``/``hds``/``align`` shifted one step
     later (initial states and zeros in front).  Returns (dpng, dpnc, de,
@@ -187,6 +235,8 @@ def teacher_decoder_bwd_reference(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, 
     rnd = lambda x: x.to(cdt).float()
     w = _plain_weights(weights, cdt)
     n_layers = len(w.w_r)
+    xin, rh, ruc, rh_a, ctx, q = teacher_bwd_remat_reference(
+        png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign, weights, keys, memory, mask)
     mem_f = memory.float()
     keys_f = keys.float()
     f32 = dict(dtype=torch.float32, device=png.device)
@@ -204,46 +254,36 @@ def teacher_decoder_bwd_reference(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, 
     dpng, dpnc, de_out, dctx_out = [None] * S, [None] * S, [None] * S, [None] * S
     for t in range(S - 1, -1, -1):
         dx = dxs[t].float()
-        x_cur = xs[t].float()
         for i in range(n_layers - 1, -1, -1):
-            h_i = hds[i][t].float()
-            x_im1 = x_cur - h_i
-            xgc = rnd(x_im1) @ w.w_r[i] + w.b_r[i]
-            dg, dac, dhds[i], rh = _gru_bwd(dx + dhds[i], xgc[:, :2 * H], xgc[:, 2 * H:],
-                                            hdps[i][t].float(), w.hg[i], w.hc[i], H, rnd)
-            d_hg[i] = d_hg[i] + tn(hdps[i][t].float(), dg)
-            d_hc[i] = d_hc[i] + tn(rh, dac)
+            x_im1, hp = xin[i][t], hdps[i][t].float()
+            dg, dac, dhds[i] = _gru_bwd(dx + dhds[i], ruc[i][t], hp, w.hg[i], w.hc[i], H, rnd)
+            d_hg[i] = d_hg[i] + tn(hp, dg)
+            d_hc[i] = d_hc[i] + tn(rh[i][t], dac)
             d_w_r[i] = d_w_r[i] + torch.cat([tn(x_im1, dg), tn(x_im1, dac)], dim=1)
             d_b_r[i] = d_b_r[i] + torch.cat([dg.sum(0), dac.sum(0)])
             dx = dx + rnd(dg) @ w.w_r[i][:, :2 * H].t() + rnd(dac) @ w.w_r[i][:, 2 * H:].t()
-            x_cur = x_im1
         h_a = ha[t].float()
         dha_loc = rnd(dx) @ w.wd_h.t()
         acc["wd_h"] = acc["wd_h"] + tn(h_a, dx)
         acc["d_b"] = acc["d_b"] + dx.sum(0)
         pt = p[t].float()
-        ctx = torch.bmm(rnd(pt)[:, None, :], mem_f)[:, 0, :]
         dcb = torch.cat([dx, dcbg, dcbc], dim=-1)                      # [B, 4H]
-        acc["w_ctx"] = acc["w_ctx"] + tn(ctx, dcb)
+        acc["w_ctx"] = acc["w_ctx"] + tn(ctx[t], dcb)
         dctx = rnd(dcb) @ w.w_ctx.t()                                  # [B, D]
         dctx_out[t] = dctx
         dp = torch.bmm(rnd(dctx)[:, None, :], mem_f.transpose(1, 2))[:, 0, :] \
             + dalign[t].float()
         de = pt * (dp - (dp * pt).sum(-1, keepdim=True))
         de_out[t] = de
-        q = rnd(h_a) @ w.wq
-        act = torch.tanh(keys_f + q[:, None, :])
+        act = torch.tanh(keys_f + q[t][:, None, :])
         dq = (de[:, :, None] * w.v * (1.0 - act * act)).sum(1)         # [B, A]
         dha_loc = dha_loc + rnd(dq) @ w.wq.t()
         acc["wq"] = acc["wq"] + tn(h_a, dq)
-        ctx_prev = torch.bmm(rnd(pp[t].float())[:, None, :], mem_f)[:, 0, :]
-        cb_prev = rnd(ctx_prev) @ w.w_ctx
-        xg = png[t].float() + cb_prev[:, H:3 * H]
-        xc = pnc[t].float() + cb_prev[:, 3 * H:]
         hp_a = hap[t].float()
-        dg_a, dac_a, dha, rh_a = _gru_bwd(dha_loc + dha, xg, xc, hp_a, w.a_hg, w.a_hc, H, rnd)
+        dg_a, dac_a, dha = _gru_bwd(dha_loc + dha, ruc[n_layers][t], hp_a, w.a_hg, w.a_hc, H,
+                                    rnd)
         acc["a_hg"] = acc["a_hg"] + tn(hp_a, dg_a)
-        acc["a_hc"] = acc["a_hc"] + tn(rh_a, dac_a)
+        acc["a_hc"] = acc["a_hc"] + tn(rh_a[t], dac_a)
         dpng[t], dpnc[t] = dg_a, dac_a
         dcbg, dcbc = dg_a, dac_a
     dweights = TeacherDecoderWeights(
@@ -310,15 +350,16 @@ def _check_common(png, pnc, weights, keys, memory, mask, extra=None):
     return S, B, H, L, A, D, N
 
 
-def _kernel_checks(what, cdt, H, A, D, N, typed):
-    """Dtype, width, alignment and contiguity limits of the CUDA kernels."""
+def _kernel_checks(what, cdt, H, A, D, N, typed, widths=()):
+    """Dtype, width, alignment and contiguity limits of the CUDA kernels
+    (``widths``: more (name, width) pairs that a matvec takes)."""
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute dtype must be float32 or bfloat16, got {cdt}")
     vec = 16 // torch.empty((), dtype=cdt).element_size()
     if N > _MAX_LAYERS:
         raise ValueError(f"{what} kernel: {N} layers > {_MAX_LAYERS}")
     for name, n in (("H", H), ("2H", 2 * H), ("3H", 3 * H), ("4H", 4 * H), ("A", A),
-                    ("D", D)):
+                    ("D", D), *widths):
         if n % vec or n > vec * _NTHREADS:
             raise ValueError(f"{what} kernel: width {name}={n} must be a multiple of "
                              f"{vec} and at most {vec * _NTHREADS}")
@@ -346,6 +387,21 @@ def _smem_check(lib_fn, what, dims):
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{what} kernel: needs {smem} bytes of shared memory "
                          f"(> {_SMEM_LIMIT})")
+
+
+def _launch(name, fn, flat, dims):
+    """One launch through ``fn`` of the library ``name`` on the current
+    stream; raises on its CUDA error."""
+    ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
+    with torch.cuda.device(flat[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ctypes.cast(ptrs, ctypes.c_void_p), dims, stream)
+    cuda_build.check(err, f"{name} kernel launch")
+
+
+def _dims(S, B, L, A, D, H, N, cdt):
+    dims = (ctypes.c_int * 8)(S, B, L, A, D, H, N, int(cdt == torch.bfloat16))
+    return dims, ctypes.cast(dims, ctypes.c_void_p)
 
 
 def teacher_decoder_fwd(png, pnc, h0a, h0d, weights: TeacherDecoderWeights, keys,
@@ -378,25 +434,18 @@ def teacher_decoder_fwd(png, pnc, h0a, h0d, weights: TeacherDecoderWeights, keys
     for i in range(N):
         flat += [w.w_r[i], w.b_r[i], w.hg[i], w.hc[i], hds[i]]
     lib = _lib("teacher_decoder_fwd")
-    is_bf16 = int(cdt == torch.bfloat16)
-    dims = (ctypes.c_int * 8)(S, B, L, A, D, H, N, is_bf16)
-    dims_p = ctypes.cast(dims, ctypes.c_void_p)
+    dims, dims_p = _dims(S, B, L, A, D, H, N, cdt)
     _smem_check(lib.teacher_decoder_fwd_smem_bytes, "teacher_decoder_fwd", dims_p)
-    ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
-    with torch.cuda.device(png.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.teacher_decoder_fwd_launch(ctypes.cast(ptrs, ctypes.c_void_p), dims_p,
-                                             stream)
-    cuda_build.check(err, "teacher_decoder_fwd kernel launch")
+    _launch("teacher_decoder_fwd", lib.teacher_decoder_fwd_launch, flat, dims_p)
     global fwd_launches
     fwd_launches += 1
     return xs, align, ha, tuple(hds)
 
 
-def teacher_decoder_bwd(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign,
-                        weights: TeacherDecoderWeights, keys, memory, mask):
-    """Reverse-time backward → (dpng, dpnc, de, dctx, dh0a, dh0d, dweights)
-    (see :func:`teacher_decoder_bwd_reference`; ``dweights.v`` is None)."""
+def _check_bwd(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign, weights, keys, memory,
+               mask):
+    """Shapes and devices of the backward's arguments, and the kernels'
+    limits for CUDA tensors; returns S, B, H, L, A, D, N."""
     S, B, H = ha.shape
     N, L = len(weights.w_r), keys.shape[1]
     if len(hds) != N or len(hdps) != N:
@@ -407,22 +456,42 @@ def teacher_decoder_bwd(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign,
     streams.update({f"hds[{i}]": (hds[i], (S, B, H)) for i in range(N)})
     streams.update({f"hdps[{i}]": (hdps[i], (S, B, H)) for i in range(N)})
     S, B, H, L, A, D, N = _check_common(png, pnc, weights, keys, memory, mask, streams)
-    if png.device.type == "cpu":
-        return teacher_decoder_bwd_reference(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs,
-                                             dalign, weights, keys, memory, mask)
-    if png.device.type != "cuda":
+    if png.device.type == "cuda":
+        cdt = keys.dtype
+        typed = [("png", png, cdt), ("pnc", pnc, cdt), ("keys", keys, cdt),
+                 ("memory", memory, cdt), ("mask", mask, torch.bool)]
+        typed += [(name, t, torch.float32) for name, (t, _) in streams.items()]
+        _kernel_checks("teacher_decoder_bwd", cdt, H, A, D, N,
+                       typed + _weights_typed(weights, cdt), widths=(("H+D", H + D),))
+        if S == 0 or B == 0:
+            raise ValueError("teacher_decoder_bwd kernel: S and B must be positive")
+    elif png.device.type != "cpu":
         raise ValueError(f"teacher_decoder_bwd runs on cpu or cuda, not {png.device}")
-    cdt = keys.dtype
-    typed = [("png", png, cdt), ("pnc", pnc, cdt), ("keys", keys, cdt),
-             ("memory", memory, cdt), ("mask", mask, torch.bool)]
-    typed += [(name, t, torch.float32) for name, (t, _) in streams.items()]
-    _kernel_checks("teacher_decoder_bwd", cdt, H, A, D, N,
-                   typed + _weights_typed(weights, cdt))
-    if S == 0 or B == 0:
-        raise ValueError("teacher_decoder_bwd kernel: S and B must be positive")
-    outs, streams = _bwd_kernel(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign,
-                                weights, keys, memory, mask)
-    dweights = _reduce_weight_grads(ha, hap, hdps, outs, streams, cdt)
+    return S, B, H, L, A, D, N
+
+
+def teacher_bwd_remat(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign,
+                      weights: TeacherDecoderWeights, keys, memory, mask):
+    """The backward's carry-free prologue alone → (xin, rh, ruc, rh_a, ctx,
+    q) (see :func:`teacher_bwd_remat_reference`; the arguments of
+    :func:`teacher_decoder_bwd`)."""
+    args = (png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign, weights, keys, memory, mask)
+    _check_bwd(*args)
+    if png.device.type == "cpu":
+        return teacher_bwd_remat_reference(*args)
+    return _remat_kernel(*args)
+
+
+def teacher_decoder_bwd(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign,
+                        weights: TeacherDecoderWeights, keys, memory, mask):
+    """Reverse-time backward → (dpng, dpnc, de, dctx, dh0a, dh0d, dweights)
+    (see :func:`teacher_decoder_bwd_reference`; ``dweights.v`` is None)."""
+    args = (png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign, weights, keys, memory, mask)
+    _check_bwd(*args)
+    if png.device.type == "cpu":
+        return teacher_decoder_bwd_reference(*args)
+    outs, streams = _bwd_kernel(*args)
+    dweights = _reduce_weight_grads(ha, hap, hdps, outs, streams, keys.dtype)
     return (*outs, dweights)
 
 
@@ -453,16 +522,58 @@ def _reduce_weight_grads(ha, hap, hdps, outs, streams, cdt):
         hc=tuple(g[7 + 3 * i][0] for i in range(N)))
 
 
-def _bwd_kernel(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign, weights, keys,
-                memory, mask):
-    """One launch of csrc/teacher_decoder_bwd.cu (arguments already checked)
-    → ((dpng, dpnc, de, dctx, dh0a, dh0d), (rh_a, dcb, ctx, dq, xin, rh,
-    dgc)): the outputs and the per-step factors of the weight gradients."""
+def _remat_kernel(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign, weights, keys,
+                  memory, mask):
+    """The prologue launch of csrc/teacher_decoder_bwd.cu (arguments already
+    checked) → (xin, rh, ruc, rh_a, ctx, q) as
+    :func:`teacher_bwd_remat_reference` returns them (stacked over layers)."""
     S, B, H = ha.shape
     L, A, D, N = keys.shape[1], keys.shape[2], memory.shape[-1], len(weights.w_r)
-    cdt = keys.dtype
     w = weights
-    tr = lambda t: t.t().contiguous()          # [in, out] -> [out, in] for v @ W^T
+    f32 = dict(dtype=torch.float32, device=png.device)
+    xin = torch.empty((N, S, B, H), **f32)
+    rh = torch.empty((N, S, B, H), **f32)
+    ruc = torch.empty((N + 1, S, B, 3 * H), **f32)
+    rh_a = torch.empty((S, B, H), **f32)
+    ctx = torch.empty((S, B, D), **f32)
+    ctxp = torch.empty((S, B, D), **f32)       # ctx_prev, the prologue's scratch
+    q = torch.empty((S, B, A), **f32)
+    flat = [png, pnc, ha, hap, xs, p, pp, memory, w.a_hg, w.a_hc, w.wq, w.w_ctx,
+            rh_a, ctx, ctxp, q, ruc[N]]
+    for i in range(N):
+        flat += [hds[i], hdps[i], w.w_r[i], w.b_r[i], w.hg[i], w.hc[i], xin[i], rh[i], ruc[i]]
+    lib = _lib("teacher_decoder_bwd")
+    dims, dims_p = _dims(S, B, L, A, D, H, N, keys.dtype)
+    _smem_check(lib.teacher_decoder_bwd_remat_smem_bytes, "teacher_decoder_bwd remat", dims_p)
+    _launch("teacher_decoder_bwd remat", lib.teacher_decoder_bwd_remat_launch, flat, dims_p)
+    global bwd_remat_launches
+    bwd_remat_launches += 1
+    return xin, rh, ruc, rh_a, ctx, q
+
+
+def _scan_weights(w, H):
+    """The scan's transposed and concatenated weight copies: per layer hc^T
+    and [w_r^T | (hg^T; 0)], then [wd_h^T | w_ctx^T[0:H]], wq^T, a_hc^T and
+    [(a_hg^T; 0) | w_ctx^T[H:4H]]."""
+    zero = torch.zeros((H, H), dtype=w.hc[0].dtype, device=w.hc[0].device)
+    cat = lambda *ts, dim: torch.cat(ts, dim=dim).contiguous()
+    w_ctx_t = w.w_ctx.t()
+    layers = [(w.hc[i].t().contiguous(), cat(w.w_r[i].t(), cat(w.hg[i].t(), zero, dim=0),
+                                             dim=1)) for i in range(len(w.w_r))]
+    return (layers, cat(w.wd_h.t(), w_ctx_t[:H], dim=1), w.wq.t().contiguous(),
+            w.a_hc.t().contiguous(), cat(cat(w.a_hg.t(), zero, dim=0), w_ctx_t[H:], dim=1))
+
+
+def _bwd_kernel(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign, weights, keys,
+                memory, mask):
+    """The two launches of csrc/teacher_decoder_bwd.cu, prologue then scan
+    (arguments already checked) → ((dpng, dpnc, de, dctx, dh0a, dh0d),
+    (rh_a, dcb, ctx, dq, xin, rh, dgc)): the outputs and the per-step
+    factors of the weight gradients."""
+    args = (png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign, weights, keys, memory, mask)
+    xin, rh, ruc, rh_a, ctx, q = _remat_kernel(*args)
+    S, B, H = ha.shape
+    L, A, D, N = keys.shape[1], keys.shape[2], memory.shape[-1], len(weights.w_r)
     f32 = dict(dtype=torch.float32, device=png.device)
     dpng = torch.empty((S, B, 2 * H), **f32)
     dpnc = torch.empty((S, B, H), **f32)
@@ -471,31 +582,18 @@ def _bwd_kernel(png, pnc, ha, hap, hds, hdps, xs, p, pp, dxs, dalign, weights, k
     dh0a = torch.empty((B, H), **f32)
     dh0d = torch.empty((N, B, H), **f32)
     # per-step factors of the weight gradients (_reduce_weight_grads)
-    rh_a = torch.empty((S, B, H), **f32)
     dcb = torch.empty((S, B, 4 * H), **f32)
-    ctx = torch.empty((S, B, D), **f32)
     dq = torch.empty((S, B, A), **f32)
-    xin = torch.empty((N, S, B, H), **f32)
-    rh = torch.empty((N, S, B, H), **f32)
     dgc = torch.empty((N, S, B, 3 * H), **f32)
-    flat = [png, pnc, ha, hap, xs, p, pp, dxs, dalign, keys, memory, mask,
-            w.a_hg, w.a_hc, w.wq, w.v, w.w_ctx,
-            tr(w.a_hg), tr(w.a_hc), tr(w.wq), tr(w.w_ctx), tr(w.wd_h),
-            dpng, dpnc, de, dctx, dh0a, dh0d, rh_a, dcb, ctx, dq]
+    layers, w1, wq_t, a_hc_t, w2 = _scan_weights(weights, H)
+    flat = [dxs, dalign, p, hap, q, keys, memory, weights.v, w1, wq_t, a_hc_t, w2, ruc[N],
+            dpng, dpnc, de, dctx, dh0a, dh0d, dcb, dq]
     for i in range(N):
-        flat += [hds[i], hdps[i], w.w_r[i], w.b_r[i], w.hg[i], w.hc[i],
-                 tr(w.w_r[i]), tr(w.hg[i]), tr(w.hc[i]), xin[i], rh[i], dgc[i]]
+        flat += [ruc[i], hdps[i], layers[i][0], layers[i][1], dgc[i]]
     lib = _lib("teacher_decoder_bwd")
-    is_bf16 = int(cdt == torch.bfloat16)
-    dims = (ctypes.c_int * 8)(S, B, L, A, D, H, N, is_bf16)
-    dims_p = ctypes.cast(dims, ctypes.c_void_p)
+    dims, dims_p = _dims(S, B, L, A, D, H, N, keys.dtype)
     _smem_check(lib.teacher_decoder_bwd_smem_bytes, "teacher_decoder_bwd", dims_p)
-    ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
-    with torch.cuda.device(png.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.teacher_decoder_bwd_launch(ctypes.cast(ptrs, ctypes.c_void_p), dims_p,
-                                             stream)
-    cuda_build.check(err, "teacher_decoder_bwd kernel launch")
+    _launch("teacher_decoder_bwd", lib.teacher_decoder_bwd_launch, flat, dims_p)
     global bwd_launches
     bwd_launches += 1
     return (dpng, dpnc, de, dctx, dh0a, dh0d), (rh_a, dcb, ctx, dq, xin, rh, dgc)
@@ -623,11 +721,13 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.dkeys_l_blocks.argtypes = [i]
             lib.dkeys_l_blocks.restype = i
         else:
-            launch = getattr(lib, f"{name}_launch")
-            launch.argtypes = [p, p, p]
-            launch.restype = i
-            smem = getattr(lib, f"{name}_smem_bytes")
-            smem.argtypes = [p]
-            smem.restype = ctypes.c_size_t
+            stems = [name] + ([f"{name}_remat"] if name == "teacher_decoder_bwd" else [])
+            for stem in stems:
+                launch = getattr(lib, f"{stem}_launch")
+                launch.argtypes = [p, p, p]
+                launch.restype = i
+                smem = getattr(lib, f"{stem}_smem_bytes")
+                smem.argtypes = [p]
+                smem.restype = ctypes.c_size_t
         lib._typed = True
     return lib

@@ -380,7 +380,7 @@ def test_teacher_backward_and_dkeys_kernels_match_plain_on_card(cuda, dtype, tol
                                                            memory, mask)
     dxs = torch.from_numpy(rs.randn(*xs.shape).astype(np.float32)).to(cuda)
     dal = torch.from_numpy(rs.randn(*align.shape).astype(np.float32)).to(cuda) * 0.1
-    before = (ttd.bwd_launches, ttd.dkeys_launches, twg.launches)
+    before = (ttd.bwd_launches, ttd.dkeys_launches, twg.launches, ttd.bwd_remat_launches)
     out = ttd.teacher_decoder_backward(png, pnc, h0a, h0d, w, keys, memory, mask,
                                        xs, align, ha, hds, dxs, dal)
     with mock.patch.object(ttd, "teacher_decoder_bwd", ttd.teacher_decoder_bwd_reference), \
@@ -389,7 +389,7 @@ def test_teacher_backward_and_dkeys_kernels_match_plain_on_card(cuda, dtype, tol
                                            xs, align, ha, hds, dxs, dal)
     torch.cuda.synchronize()
     assert (ttd.bwd_launches - before[0], ttd.dkeys_launches - before[1],
-            twg.launches - before[2]) == (1, 1, 1)
+            twg.launches - before[2], ttd.bwd_remat_launches - before[3]) == (1, 1, 1, 1)
     names = ("dpng", "dpnc", "dh0a", "dh0d")
     for name, a, b in zip(names, out[:4], ref[:4]):
         assert _err(a, b) <= tol, (name, _err(a, b))
@@ -398,6 +398,33 @@ def test_teacher_backward_and_dkeys_kernels_match_plain_on_card(cuda, dtype, tol
             assert _err(x, y) <= tol, (name, _err(x, y))
     for name, a, b in zip(("dkeys", "dmemory", "de", "dctx"), out[5:], ref[5:]):
         assert _err(a, b) <= tol, (name, _err(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_teacher_bwd_remat_kernel_matches_plain_on_card(cuda, dtype, tol):
+    # the backward's prologue launch alone, from the plain forward's states,
+    # every output relative to max(its peak, 1).  f32: sum order only.  bf16: both
+    # sides round the same inputs, but an order difference can flip the
+    # bf16 rounding of ctx_prev or r*h_prev, which the next product rounds
+    # again (one ulp times a weight, ~1e-3 of the gates)
+    rs, w, args = _teacher_on_card(cuda, dtype, seed=11)
+    png, pnc, h0a, h0d, keys, memory, mask = args
+    xs, align, ha, hds = ttd.teacher_decoder_fwd_reference(png, pnc, h0a, h0d, w, keys,
+                                                           memory, mask)
+    shift = lambda a, a0: torch.cat([a0[None].to(a.dtype), a[:-1]]).contiguous()
+    bargs = (png, pnc, ha, shift(ha, h0a), tuple(hds),
+             tuple(shift(hds[i], h0d[i]) for i in range(len(hds))), xs, align,
+             shift(align, torch.zeros_like(align[0])), torch.zeros_like(xs),
+             torch.zeros_like(align), w, keys, memory, mask)
+    before = (ttd.bwd_remat_launches, ttd.bwd_launches)
+    out = ttd.teacher_bwd_remat(*bargs)
+    ref = ttd.teacher_bwd_remat_reference(*bargs)
+    torch.cuda.synchronize()
+    assert (ttd.bwd_remat_launches - before[0], ttd.bwd_launches - before[1]) == (1, 0)
+    for name, a, b in zip(("xin", "rh", "ruc", "rh_a", "ctx", "q"), out, ref):
+        for x, y in zip(*((a, b) if isinstance(b, tuple) else ((a,), (b,)))):
+            assert _err(x, y) <= tol, (name, _err(x, y))
 
 
 @pytest.mark.gpu

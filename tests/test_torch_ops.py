@@ -294,6 +294,93 @@ def test_teacher_backward_plain_matches_pallas_interpret():
     assert np.all(out[7].numpy()[:, ~mask] == 0.0)       # no gradient at masked positions
 
 
+def _pallas_teacher_case(seed):
+    """A numpy case, its Pallas forward's states (interpret mode) and the
+    backward's shifted states: (rs, w, arrays, (xs, al, ha, hds), (hap,
+    hdps, pp))."""
+    rs, w, arrays = _teacher_numpy_case(seed)
+    png, pnc, h0a, h0d, keys, memory, mask = arrays
+    states = tuple(np.asarray(a) if not isinstance(a, tuple) else tuple(map(np.asarray, a))
+                   for a in jtd._teacher_decoder_fwd_pallas(
+                       *map(jnp.asarray, (png, pnc, h0a, h0d)), _jax_teacher_weights(w),
+                       jnp.asarray(keys), jnp.asarray(memory),
+                       jnp.asarray(mask.astype(np.float32)), interpret=True))
+    xs, al, ha, hds = states
+    shift = lambda a, a0: np.concatenate([a0[None], a[:-1]])
+    shifted = (shift(ha, h0a), tuple(shift(hds[i], h0d[i]) for i in range(2)),
+               shift(al, np.zeros_like(al[0])))
+    return rs, w, arrays, states, shifted
+
+
+def _torch_bwd_args(w, arrays, states, shifted, pp, dxs, dal):
+    """The arguments of ``teacher_decoder_bwd`` as CPU tensors."""
+    t = lambda a: torch.from_numpy(np.array(a))
+    targs = teacher_args(arrays)
+    xs, al, ha, hds = states
+    hap, hdps, _ = shifted
+    return (targs[0], targs[1], t(ha), t(hap), tuple(map(t, hds)), tuple(map(t, hdps)),
+            t(xs), t(al), t(pp), t(dxs), t(dal), teacher_weights(w), *targs[4:])
+
+
+def test_teacher_remat_plain_rebuilds_pallas_forward_states():
+    # the backward's prologue from the Pallas forward's states: each GRU's
+    # r, u, c give back its next state (u*h_prev + (1-u)*c = hds[i], ha),
+    # r*h_prev is rh, ctx = p_t @ memory and q = ha @ wq; f32, the same
+    # products in other sum orders -> 1e-5 of each peak
+    _, w, arrays, states, shifted = _pallas_teacher_case(28)
+    xs, al, ha, hds = states
+    hap, hdps, pp = shifted
+    memory = arrays[5]
+    args = _torch_bwd_args(w, arrays, states, shifted, pp, np.zeros_like(xs),
+                           np.zeros_like(al))
+    xin, rh, ruc, rh_a, ctx, q = ttd.teacher_bwd_remat(*args)
+    H = ha.shape[-1]
+    for name, i, h, hp, rh_i in (("hd_0", 0, hds[0], hdps[0], rh[0]),
+                                 ("hd_1", 1, hds[1], hdps[1], rh[1]),
+                                 ("ha", 2, ha, hap, rh_a)):
+        r, u, c = (ruc[i][..., k * H:(k + 1) * H].numpy() for k in range(3))
+        _close(u * hp + (1.0 - u) * c, h, 1e-5, name)
+        _close(rh_i.numpy(), r * hp, 1e-5, f"rh of {name}")
+    _close(ctx.numpy(), np.einsum("sbl,bld->sbd", al, memory), 1e-5, "ctx")
+    _close(q.numpy(), ha @ w["wq"], 1e-5, "q")
+    _close(xin[1].numpy(), xs - hds[1], 1e-5, "xin[1]")
+    _close(xin[0].numpy(), xs - hds[1] - hds[0], 1e-5, "xin[0]")
+
+
+@pytest.mark.parametrize("pp_kind", ["shifted", "random"])
+def test_teacher_split_backward_matches_pallas_interpret(pp_kind):
+    # teacher_decoder_bwd on CPU tensors (the plain prologue over all rows,
+    # then the plain scan) against _teacher_decoder_bwd_pallas on the same
+    # arguments, every output by name; pp is an argument of both, so a pp
+    # that is not the alignments shifted must give the same gradients too.
+    # f32 sums in other orders over 5 steps x 3 rows -> 1e-5 of each peak
+    rs, w, arrays, states, shifted = _pallas_teacher_case(29)
+    png, pnc, h0a, h0d, keys, memory, mask = arrays
+    xs, al, ha, hds = states
+    hap, hdps, pp = shifted
+    if pp_kind == "random":
+        pp = (rs.rand(*al.shape) * mask[None] / mask.sum(-1)[None, :, None]).astype(np.float32)
+    dxs = rs.randn(*xs.shape).astype(np.float32)
+    dal = (rs.randn(*al.shape) * 0.1).astype(np.float32)
+    j = jtd._teacher_decoder_bwd_pallas(
+        *map(jnp.asarray, (png, pnc, ha, hap)), tuple(map(jnp.asarray, hds)),
+        tuple(map(jnp.asarray, hdps)), *map(jnp.asarray, (xs, al, pp, dxs, dal)),
+        _jax_teacher_weights(w), jnp.asarray(keys), jnp.asarray(memory),
+        jnp.asarray(mask.astype(np.float32)), interpret=True)
+    dpng, dpnc, de, dctx, dh0a, dh0d, dw = ttd.teacher_decoder_bwd(
+        *_torch_bwd_args(w, arrays, states, shifted, pp, dxs, dal))
+    S, B, L = al.shape
+    for name, a, b in (("dpng", dpng, j[0]), ("dpnc", dpnc, j[1]), ("dh0a", dh0a, j[2]),
+                       ("dh0d", dh0d, j[3]), ("de", de, np.asarray(j[7])[:S, :B, :L]),
+                       ("dctx", dctx, np.asarray(j[8])[:S, :B])):
+        _close(a.numpy(), b, 1e-5, name)
+    for name, a, b in zip(jtd.TeacherDecoderWeights._fields, dw, j[4]):
+        if name == "v":                # summed by dkeys, outside this function
+            continue
+        for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            _close(x.numpy(), y, 1e-5, name)
+
+
 def test_dkeys_plain_matches_pallas_interpret():
     # the Pallas kernel wants L a multiple of 128 and S of its chunk: pad L
     # with zero de (no contribution) and compare the 13 real positions;

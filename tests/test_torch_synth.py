@@ -138,6 +138,9 @@ def _python_files():
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "gl_ab.py")
+    # the tools that import the port or chip_smoke.py
+    for name in ("decoder_variants.py", "decoder_phase_clock.py", "teacher_bwd_variants.py"):
+        yield os.path.join(REPO, "tools", name)
 
 
 def test_port_sources_import_nothing_of_jax():
