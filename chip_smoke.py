@@ -797,6 +797,29 @@ def _teacher_bwd_args(fwd_args, w, states, seed):
             mask)
 
 
+def _random_pp(align, mask, seed):
+    """A previous-step alignment that is not ``align`` shifted: random and
+    normalised over each row's unmasked keys, at the alignments' scale (the
+    backward takes pp as given)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = torch.rand(tuple(align.shape), generator=g, device="cuda") * mask[None].float()
+    return (r / r.sum(-1, keepdim=True)).contiguous()
+
+
+def _bwd_errors(out, ref):
+    """Each output of ``teacher_decoder_bwd`` relative to its peak."""
+    from tacotron_multispeaker_torch.ops.teacher_decoder import TeacherDecoderWeights
+    names = ("dpng", "dpnc", "de", "dctx", "dh0a", "dh0d")
+    errs = {n: _rel_err(a, b) for n, a, b in zip(names, out[:6], ref[:6])}
+    for n, a, b in zip(TeacherDecoderWeights._fields, out[6], ref[6]):
+        if b is not None:
+            pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+            errs.update({f"{n}[{i}]" if isinstance(a, tuple) else n: _rel_err(x, y)
+                         for i, (x, y) in enumerate(pairs)})
+    return errs
+
+
 def _remat_errors(out, ref):
     """Each prologue output relative to its peak: every GRU's r, u and c,
     q, ctx, the layer inputs and r*h_prev."""
@@ -838,32 +861,54 @@ def phase_teacher(bigru_wgrad_err):
     # ~3e-3 of the gates' peak (1)
     rtol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
     worst = {"fwd": 0.0, "bwd": 0.0, "remat": 0.0}
-    for dtype, S in ((torch.float32, 12), (torch.bfloat16, 20)):
+    # S=12 and 20: one partial tile of the prologue (a block takes 64 steps
+    # of a batch row); S=200, the train batch's: three full tiles and a
+    # partial one.  The forward is held at the short lengths only
+    for dtype, S in ((torch.float32, 12), (torch.bfloat16, 20), (torch.float32, 200),
+                     (torch.bfloat16, 200)):
         w, args = _teacher_case(B, L, S, dtype, seed=21)
         png, pnc, h0a, h0d, keys, memory, mask = args
-        out = td.teacher_decoder_fwd(png, pnc, h0a, h0d, w, keys, memory, mask)
         ref = td.teacher_decoder_fwd_reference(png, pnc, h0a, h0d, w, keys, memory, mask)
-        torch.cuda.synchronize()
-        errs = {"xs": _rel_err(out[0], ref[0]), "ha": _rel_err(out[2], ref[2]),
-                **{f"hd_{i}": _rel_err(out[3][i], ref[3][i]) for i in range(N)}}
-        e_al = (out[1] - ref[1]).abs().max().item()
-        xt, at = ftol[dtype]
-        log(f"[teacher_fwd] B={B} L={L} S={S} H=A={H} D={D} {str(dtype)[6:]}: "
-            + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
-            + f" (relative, tol {xt:.0e}); align {e_al:.3e} (absolute, tol {at:.0e})")
-        if not (all(e <= xt for e in errs.values()) and e_al <= at):
-            raise AssertionError(f"teacher_decoder_fwd disagrees with its plain version")
-        worst["fwd"] = max(worst["fwd"], *errs.values(), e_al)
-        # the backward's prologue alone, from the plain forward's states
-        bargs = _teacher_bwd_args(args, w, ref, seed=22)
-        errs = _remat_errors(td.teacher_bwd_remat(*bargs), td.teacher_bwd_remat_reference(*bargs))
-        torch.cuda.synchronize()
-        log(f"[teacher_bwd_remat] B={B} L={L} S={S} {str(dtype)[6:]}: max|kernel-plain|/"
+        if S < 64:
+            out = td.teacher_decoder_fwd(png, pnc, h0a, h0d, w, keys, memory, mask)
+            torch.cuda.synchronize()
+            errs = {"xs": _rel_err(out[0], ref[0]), "ha": _rel_err(out[2], ref[2]),
+                    **{f"hd_{i}": _rel_err(out[3][i], ref[3][i]) for i in range(N)}}
+            e_al = (out[1] - ref[1]).abs().max().item()
+            xt, at = ftol[dtype]
+            log(f"[teacher_fwd] B={B} L={L} S={S} H=A={H} D={D} {str(dtype)[6:]}: "
+                + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f" (relative, tol {xt:.0e}); align {e_al:.3e} (absolute, tol {at:.0e})")
+            if not (all(e <= xt for e in errs.values()) and e_al <= at):
+                raise AssertionError(f"teacher_decoder_fwd disagrees with its plain version")
+            worst["fwd"] = max(worst["fwd"], *errs.values(), e_al)
+        # the backward's prologue alone, from the plain forward's states:
+        # with the alignments shifted into pp, as the train path gives it,
+        # and with a random pp (the prologue must not assume the shift); the
+        # two launches together with the random pp (every output of
+        # teacher_decoder_bwd, tolerances of the whole backward's check below)
+        bargs = list(_teacher_bwd_args(args, w, ref, seed=22))
+        for pp_kind in ("shifted", "random"):
+            if pp_kind == "random":
+                bargs[8] = _random_pp(bargs[7], mask, seed=26)
+            errs = _remat_errors(td.teacher_bwd_remat(*bargs),
+                                 td.teacher_bwd_remat_reference(*bargs))
+            torch.cuda.synchronize()
+            log(f"[teacher_bwd_remat] B={B} L={L} S={S} {str(dtype)[6:]} {pp_kind} pp: "
+                f"max|kernel-plain|/max|plain| "
+                + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                + f" (tol {rtol[dtype]:.0e})")
+            if not all(e <= rtol[dtype] for e in errs.values()):
+                raise AssertionError("teacher backward prologue disagrees with its plain version")
+            worst["remat"] = max(worst["remat"], *errs.values())
+        errs = _bwd_errors(td.teacher_decoder_bwd(*bargs), td.teacher_decoder_bwd_reference(*bargs))
+        log(f"[teacher_bwd] B={B} L={L} S={S} {str(dtype)[6:]} random pp: max|kernel-plain|/"
             f"max|plain| " + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
-            + f" (tol {rtol[dtype]:.0e})")
-        if not all(e <= rtol[dtype] for e in errs.values()):
-            raise AssertionError("teacher backward prologue disagrees with its plain version")
-        worst["remat"] = max(worst["remat"], *errs.values())
+            + f" (tol {btol[dtype]:.0e})")
+        if not all(e <= btol[dtype] for e in errs.values()):
+            raise AssertionError("teacher decoder backward disagrees with its plain version "
+                                 "(random pp)")
+        worst["bwd"] = max(worst["bwd"], *errs.values())
         # the whole backward from the plain forward's states, random cotangents
         g = torch.Generator(device="cuda").manual_seed(22)
         xs, align, ha, hds = ref
@@ -957,7 +1002,8 @@ def phase_teacher(bigru_wgrad_err):
                                      "ms_scan": split["teacher_bwd_scan"],
                                      "shape": f"B={B} L={L} S={S} H=A={H} D={D} bf16",
                                      "error": "max |kernel - plain| / max |plain| over every "
-                                              "gradient of the backward"}
+                                              "gradient of the backward; B=32 L=192 at S=12, 20 "
+                                              "and 200, f32 and bf16, pp shifted and random"}
     log(f"[teacher_bwd] B={B} L={L} S={S} bf16: kernel (prologue + scan) {ms:.3f} ms, device "
         f"{json.dumps({k: round(v, 3) for k, v in split.items()})} ms ({json.dumps(split_n)} "
         f"launches), plain (with its weight gradients) {plain_ms:.3f} ms, bound "
@@ -985,7 +1031,8 @@ def phase_teacher(bigru_wgrad_err):
         "bound_ms": r_bound[0], "bound_by": r_bound[1],
         "shape": f"S*B={S * B} rows, H=A={H} D={D} L={L} bf16",
         "error": "max |kernel - plain| / max |plain| over each GRU's r, u, c, q, ctx, the "
-                 "layer inputs and r*h_prev"}
+                 "layer inputs and r*h_prev; B=32 L=192 at S=12, 20 and 200, f32 and bf16, "
+                 "pp shifted and random"}
     log(f"[teacher_bwd_remat] S*B={S * B} rows bf16: kernel {r_ms:.3f} ms, plain "
         f"{r_plain:.3f} ms, bound {r_bound[0]:.4f} ms ({r_bound[1]})")
     # its weight-gradient reduction (one grouped wgrad launch, 11 products)

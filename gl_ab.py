@@ -109,21 +109,14 @@ def _teacher(c, torch):
     B, L, S = 32, 192, 200
     w, args = c._teacher_case(B, L, S, torch.bfloat16, seed=24)
     png, pnc, h0a, h0d, keys, memory, mask = args
-    xs, align, ha, hds = td.teacher_decoder_fwd(png, pnc, h0a, h0d, w, keys, memory, mask)
-    shift = lambda a, a0: torch.cat([a0[None].to(a.dtype), a[:-1]]).contiguous()  # noqa: E731
-    g = torch.Generator(device="cuda").manual_seed(25)
-    bargs = (png, pnc, ha, shift(ha, h0a), tuple(hds),
-             tuple(shift(hds[i], h0d[i]) for i in range(len(hds))), xs, align,
-             shift(align, torch.zeros_like(align[0])),
-             torch.randn(tuple(xs.shape), generator=g, device="cuda"),
-             torch.randn(tuple(align.shape), generator=g, device="cuda") * 0.1,
-             w, keys, memory, mask)
+    states = td.teacher_decoder_fwd(png, pnc, h0a, h0d, w, keys, memory, mask)
+    bargs = c._teacher_bwd_args(args, w, states, seed=25)
     run = lambda: td._bwd_kernel(*bargs)  # noqa: E731
     ms = c.cuda_time_ms(run, reps=3)
     split, _ = c._device_split_ms(run, ("teacher_bwd", "teacher_bwd_remat", "teacher_bwd_scan"))
     parts = [f"kernel 8 B={B} L={L} S={S} {ms:.3f} ms "
              + str({k: round(v, 3) for k, v in split.items()})]
-    del bargs, xs, align, ha, hds
+    del bargs, states
     cfg = get_config("multispeaker_vctk")
     model, state = training.create_train_state(cfg, seed=0)
     step = training.make_train_step(cfg, model)

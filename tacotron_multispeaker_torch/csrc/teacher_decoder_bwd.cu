@@ -95,7 +95,11 @@
 // step buffers of 2H + NH + 3(N+1)H + A + 2L floats; 69 KB at full width in
 // bf16), the bf16 remat's 1024 + 8 KB per A k-block (max(2 ceil(H/64),
 // ceil(D/64) + ceil(H/64), ceil(L/64)) of them) + 64 KB of ring + 33 KB of
-// staged sums (170 KB).
+// staged sums (170 KB).  So the bf16 backward takes L <= 1024 (16 k-blocks,
+// 226 KB): the products over L, p_t @ memory_b and pp_t @ memory_b, hold
+// all their A k-blocks at once.  The f32 prologue's tile has a fixed size;
+// the scan's 5L floats cap L near 8,300 at full width.  Training inputs
+// are cut at train.max_input_length (192 in every preset but tiny's 64).
 
 #include <string.h>
 

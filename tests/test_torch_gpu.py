@@ -428,6 +428,52 @@ def test_teacher_bwd_remat_kernel_matches_plain_on_card(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pp_kind", ["shifted", "random"])
+@pytest.mark.parametrize("dtype,rtol,btol", [(torch.float32, 1e-5, 2e-4),
+                                             (torch.bfloat16, 1e-2, 5e-2)])
+def test_teacher_bwd_kernels_over_several_tiles_and_a_given_pp_on_card(cuda, dtype, rtol,
+                                                                         btol, pp_kind):
+    # S=150: the prologue's blocks take 64 steps of a batch row, so two full
+    # tiles (t0 = 0, 64) and a partial one (t0 = 128, 22 steps).  pp is an
+    # argument: "random" is not the alignments shifted but random and
+    # normalised over each row's keys.  The prologue at its tolerances
+    # (see the test above), then both launches, every output of
+    # teacher_decoder_bwd at the whole backward's
+    rs, w, args = _teacher_on_card(cuda, dtype, S=150, seed=12)
+    png, pnc, h0a, h0d, keys, memory, mask = args
+    xs, align, ha, hds = ttd.teacher_decoder_fwd_reference(png, pnc, h0a, h0d, w, keys,
+                                                           memory, mask)
+    shift = lambda a, a0: torch.cat([a0[None].to(a.dtype), a[:-1]]).contiguous()
+    if pp_kind == "random":
+        r = torch.from_numpy(rs.rand(*align.shape).astype(np.float32)).to(cuda) * mask[None]
+        pp = (r / r.sum(-1, keepdim=True)).contiguous()
+    else:
+        pp = shift(align, torch.zeros_like(align[0]))
+    bargs = (png, pnc, ha, shift(ha, h0a), tuple(hds),
+             tuple(shift(hds[i], h0d[i]) for i in range(len(hds))), xs, align, pp,
+             torch.from_numpy(rs.randn(*xs.shape).astype(np.float32)).to(cuda),
+             torch.from_numpy(rs.randn(*align.shape).astype(np.float32)).to(cuda) * 0.1,
+             w, keys, memory, mask)
+    out = ttd.teacher_bwd_remat(*bargs)
+    ref = ttd.teacher_bwd_remat_reference(*bargs)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("xin", "rh", "ruc", "rh_a", "ctx", "q"), out, ref):
+        for x, y in zip(*((a, b) if isinstance(b, tuple) else ((a,), (b,)))):
+            assert _err(x, y) <= rtol, (name, _err(x, y))
+    before = (ttd.bwd_remat_launches, ttd.bwd_launches)
+    out = ttd.teacher_decoder_bwd(*bargs)
+    ref = ttd.teacher_decoder_bwd_reference(*bargs)
+    torch.cuda.synchronize()
+    assert (ttd.bwd_remat_launches - before[0], ttd.bwd_launches - before[1]) == (1, 1)
+    for name, a, b in zip(("dpng", "dpnc", "de", "dctx", "dh0a", "dh0d"), out[:6], ref[:6]):
+        assert _err(a, b) <= btol, (name, _err(a, b))
+    for name, a, b in zip(ttd.TeacherDecoderWeights._fields, out[6], ref[6]):
+        if b is not None:
+            for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+                assert _err(x, y) <= btol, (name, _err(x, y))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-5)])
 def test_wgrad_kernel_matches_plain_on_card(cuda, dtype, tol):
     # strided views (a direction of [T, 2, B, F], a column slice), bias sums,

@@ -139,7 +139,8 @@ def _python_files():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "gl_ab.py")
     # the tools that import the port or chip_smoke.py
-    for name in ("decoder_variants.py", "decoder_phase_clock.py", "teacher_bwd_variants.py"):
+    for name in ("decoder_variants.py", "decoder_phase_clock.py", "teacher_bwd_variants.py",
+                 "variant_build.py"):
         yield os.path.join(REPO, "tools", name)
 
 

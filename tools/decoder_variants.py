@@ -17,44 +17,17 @@ import concurrent.futures
 import ctypes
 import json
 import os
-import shutil
-import subprocess
 import sys
-import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from variant_build import build  # noqa: E402
 
-def build(name, changes):
-    from tacotron_multispeaker_torch.ops import cuda_build
-    d = tempfile.mkdtemp()
-    for f in os.listdir(cuda_build.CSRC):
-        shutil.copy(cuda_build.CSRC / f, d)
-    for fname, change in changes.items():
-        path = os.path.join(d, fname)
-        if isinstance(change, str):
-            shutil.copy(os.path.join(REPO, change), path)
-            continue
-        text = open(path).read()
-        for old, new in change:
-            if text.count(old) != 1:
-                raise ValueError(f"{name}: {old!r} occurs {text.count(old)} times in {fname}")
-            text = text.replace(old, new)
-        open(path, "w").write(text)
-    so = os.path.join(d, "decoder_loop.so")
-    proc = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", so,
-                           os.path.join(d, "decoder_loop.cu")], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
-    lib = ctypes.CDLL(so)
-    lib.decoder_loop_launch.argtypes = [ctypes.c_void_p] * 3
-    lib.decoder_loop_max_clusters.argtypes = [ctypes.c_void_p] * 2
-    lib.decoder_loop_smem_bytes.argtypes = [ctypes.c_void_p]
-    lib.decoder_loop_smem_bytes.restype = ctypes.c_size_t
-    lib._typed = True
-    spills = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines() if "spill" in ln]
-    return name, lib, spills
+p = ctypes.c_void_p
+SYMBOLS = {"decoder_loop_launch": ([p] * 3, ctypes.c_int),
+           "decoder_loop_max_clusters": ([p] * 2, ctypes.c_int),
+           "decoder_loop_smem_bytes": ([p], ctypes.c_size_t)}
 
 
 def main() -> int:
@@ -66,9 +39,9 @@ def main() -> int:
         return 1
     spec = json.load(open(sys.argv[1]))
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        built = list(pool.map(lambda kv: build(*kv), spec.items()))
-    for name, _, spills in built:
-        print(f"{name}: {spills}")
+        built = list(pool.map(lambda kv: build(*kv, "decoder_loop", SYMBOLS), spec.items()))
+    for name, _, regs in built:
+        print(f"{name}: {regs}")
     cases = [(1, 96, 16), (32, 192, 2), (1, 96, 1)]
     inputs = {cs: c._decoder_case(cs[0], cs[1], 200, torch.bfloat16, scale=0.05, seed=6)
               for cs in cases}

@@ -19,49 +19,17 @@ import concurrent.futures
 import ctypes
 import json
 import os
-import shutil
-import subprocess
 import sys
-import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 LIB = "teacher_decoder_bwd"
 
+from variant_build import build  # noqa: E402
 
-def build(name, changes):
-    from tacotron_multispeaker_torch.ops import cuda_build
-    d = tempfile.mkdtemp()
-    for f in os.listdir(cuda_build.CSRC):
-        shutil.copy(cuda_build.CSRC / f, d)
-    for fname, change in changes.items():
-        path = os.path.join(d, fname)
-        if isinstance(change, str):
-            shutil.copy(os.path.join(REPO, change), path)
-            continue
-        text = open(path).read()
-        for old, new in change:
-            if text.count(old) != 1:
-                raise ValueError(f"{name}: {old!r} occurs {text.count(old)} times in {fname}")
-            text = text.replace(old, new)
-        open(path, "w").write(text)
-    so = os.path.join(d, f"{LIB}.so")
-    proc = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", so,
-                           os.path.join(d, f"{LIB}.cu")], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
-    lib = ctypes.CDLL(so)
-    p = ctypes.c_void_p
-    for stem in (LIB, f"{LIB}_remat"):
-        getattr(lib, f"{stem}_launch").argtypes = [p, p, p]
-        getattr(lib, f"{stem}_launch").restype = ctypes.c_int
-        getattr(lib, f"{stem}_smem_bytes").argtypes = [p]
-        getattr(lib, f"{stem}_smem_bytes").restype = ctypes.c_size_t
-    lib._typed = True
-    report = proc.stdout + proc.stderr
-    regs = [ln.split(":", 1)[-1].strip() for ln in report.splitlines()
-            if "registers" in ln or "spill" in ln]
-    return name, lib, regs
+p = ctypes.c_void_p
+SYMBOLS = {f"{LIB}{sfx}_{fn}": ([p] * n, rt) for sfx in ("", "_remat")
+           for fn, n, rt in (("launch", 3, ctypes.c_int), ("smem_bytes", 1, ctypes.c_size_t))}
 
 
 def main() -> int:
@@ -73,7 +41,7 @@ def main() -> int:
         return 1
     spec = json.load(open(sys.argv[1]))
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        built = list(pool.map(lambda kv: build(*kv), spec.items()))
+        built = list(pool.map(lambda kv: build(*kv, LIB, SYMBOLS), spec.items()))
     for name, _, regs in built:
         print(f"{name}: {regs}")
     L, S = 192, 200
