@@ -17,6 +17,9 @@ Phases (no failure is caught; any exception exits non-zero):
    decoder loop (kernel 5) is held at every thread-block-cluster size the
    card takes, and its per-step latency bound is computed from latencies
    probed on the card (``csrc/latency_probe.cu``).  The teacher-forced
+   forward (kernel 6) is held likewise at every cluster size, at S=12, 20
+   and 200, ragged and at D=384, timed at B=32 and B=1 with a sweep over
+   C and its per-step latency bound from the same probe.  The teacher-forced
    backward (kernel 8) is held whole and its prologue launch alone, the two
    launches timed apart, its scan's per-step latency bound from the same
    probe.
@@ -500,26 +503,41 @@ def _latency_probe(sizes):
             "sm_l2_bytes_s": nbytes / sm_s, "card_l2_bytes_s": 132 * nbytes / card_s}
 
 
-def _decoder_latency_bound_ms(args, C, coresident, probe):
-    """Kernel 5's per-step latency bound: each of the 8 + 2N dependent phases
-    waits one L2 round trip and one DSMEM exchange + cluster barrier, and a
-    CTA streams its 1/C of the step's weight, key and memory bytes through
-    its SM's L2 port (or all running rows share the card's L2 bandwidth,
-    whichever is slower); rows beyond the co-resident clusters run in
-    later waves."""
+def _cluster_latency_bound_ms(S, B, phases, step_bytes, C, coresident, probe):
+    """The per-step latency bound of a kernel that runs a batch row's step on
+    a cluster of C CTAs: each of ``phases`` dependent phases waits one L2
+    round trip and one DSMEM exchange + cluster barrier, and a CTA streams
+    its 1/C of the step's ``step_bytes`` through its SM's L2 port (or all
+    running rows share the card's L2 bandwidth, whichever is slower); rows
+    beyond the co-resident clusters run in later waves."""
     import math
-    w, keys, memory, mask, dm1, dm2, attn_h0, dec_h0, S, M = args
-    B = keys.shape[0]
-    n_layers = len(w.l_xg)
-    mats = [t for v in w for t in (v if isinstance(v, tuple) else (v,)) if t.dim() == 2]
-    step_bytes = _nbytes(*mats) + (keys[0].numel() + memory[0].numel()) * keys.element_size()
     running = min(B, coresident)
     stream_s = max(step_bytes / C / probe["sm_l2_bytes_s"],
                    running * step_bytes / probe["card_l2_bytes_s"])
-    phases = 8 + 2 * n_layers
     step_s = (phases * (probe["l2_round_trip_us"] + probe["cluster_barrier_us"][C]) * 1e-6
               + stream_s)
     return S * math.ceil(B / coresident) * step_s * 1e3
+
+
+def _decoder_latency_bound_ms(args, C, coresident, probe):
+    """Kernel 5's per-step latency bound (``_cluster_latency_bound_ms``):
+    8 + 2N phases; a step reads every weight matrix and one row's keys and
+    memory."""
+    w, keys, memory, mask, dm1, dm2, attn_h0, dec_h0, S, M = args
+    mats = [t for v in w for t in (v if isinstance(v, tuple) else (v,)) if t.dim() == 2]
+    step_bytes = _nbytes(*mats) + (keys[0].numel() + memory[0].numel()) * keys.element_size()
+    return _cluster_latency_bound_ms(S, keys.shape[0], 8 + 2 * len(w.l_xg), step_bytes, C,
+                                     coresident, probe)
+
+
+def _teacher_fwd_latency_bound_ms(w, keys, memory, S, C, coresident, probe):
+    """Kernel 6's per-step latency bound (``_cluster_latency_bound_ms``):
+    5 + 2N phases; a step reads every weight matrix and one row's keys and
+    memory."""
+    mats = [t for t in w.flat() if t.dim() == 2]
+    step_bytes = _nbytes(*mats) + (keys[0].numel() + memory[0].numel()) * keys.element_size()
+    return _cluster_latency_bound_ms(S, keys.shape[0], 5 + 2 * len(w.w_r), step_bytes, C,
+                                     coresident, probe)
 
 
 def _teacher_bwd_phases(n_layers, hoisted=True):
@@ -839,6 +857,43 @@ def _remat_errors(out, ref):
     return errs
 
 
+def _check_teacher_fwd(w, args, tol):
+    """Kernel 6 against its plain version on one case, at the launch plan's
+    C and at every C the card holds (forced through ``_teacher_fwd_cuda``):
+    xs and the states relative to their peak, alignments absolute.  Returns
+    (the plain outputs, the worst error)."""
+    import torch
+    from tacotron_multispeaker_torch.ops import teacher_decoder as td
+    png, pnc, h0a, h0d, keys, memory, mask = args
+    S, B = png.shape[:2]
+    L, A, D, H, N = keys.shape[1], keys.shape[2], memory.shape[-1], png.shape[-1] // 2, len(w.w_r)
+    ref = td.teacher_decoder_fwd_reference(png, pnc, h0a, h0d, w, keys, memory, mask)
+    counts = td.fwd_cluster_counts((S, B, L, A, D, H, N), int(keys.dtype == torch.bfloat16),
+                                   keys.device)
+    runs = [("plan", lambda: td.teacher_decoder_fwd(png, pnc, h0a, h0d, w, keys, memory, mask))]
+    runs += [(f"C={C}", lambda C=C: td._teacher_fwd_cuda(png, pnc, h0a, h0d, w, keys, memory,
+                                                         mask, cluster=C))
+             for C in td.CLUSTER_SIZES if counts[C] > 0]
+    xt, at = tol
+    worst = 0.0
+    for label, run in runs:
+        out = run()
+        torch.cuda.synchronize()
+        errs = {"xs": _rel_err(out[0], ref[0]), "ha": _rel_err(out[2], ref[2]),
+                **{f"hd_{i}": _rel_err(out[3][i], ref[3][i]) for i in range(N)}}
+        e_al = (out[1] - ref[1]).abs().max().item()
+        log(f"[teacher_fwd] B={B} L={L} S={S} H=A={H} D={D} {str(keys.dtype)[6:]} {label} "
+            f"(ran C={td.fwd_last_plan[0]}): " + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (relative, tol {xt:.0e}); align {e_al:.3e} (absolute, tol {at:.0e})")
+        if not (all(e <= xt for e in errs.values()) and e_al <= at):
+            raise AssertionError(f"teacher_decoder_fwd disagrees with its plain version "
+                                 f"(B={B} L={L} S={S} D={D} {label})")
+        worst = max(worst, *errs.values(), e_al)
+    log(f"[teacher_fwd] B={B} L={L} D={D} {str(keys.dtype)[6:]}: co-resident clusters "
+        f"{counts}, plan C={td.launch_plan(B, H, 16 // keys.element_size(), counts)}")
+    return ref, worst
+
+
 def phase_teacher(bigru_wgrad_err):
     import torch
     from tacotron_multispeaker_torch.ops import teacher_decoder as td
@@ -861,27 +916,22 @@ def phase_teacher(bigru_wgrad_err):
     # ~3e-3 of the gates' peak (1)
     rtol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
     worst = {"fwd": 0.0, "bwd": 0.0, "remat": 0.0}
+    # the forward alone: a ragged B=3 L=13 batch (some CTAs hold no position
+    # at C=16) and pod_synthesis's D=384, short runs in f32 and bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        for b_, l_, d_ in ((3, 13, D), (B, L, 384)):
+            w, args = _teacher_case(b_, l_, 20, dtype, seed=27, D=d_)
+            worst["fwd"] = max(worst["fwd"], _check_teacher_fwd(w, args, ftol[dtype])[1])
     # S=12 and 20: one partial tile of the prologue (a block takes 64 steps
     # of a batch row); S=200, the train batch's: three full tiles and a
-    # partial one.  The forward is held at the short lengths only
+    # partial one.  The forward is held at every S, at the launch plan's C
+    # and at every C the card holds
     for dtype, S in ((torch.float32, 12), (torch.bfloat16, 20), (torch.float32, 200),
                      (torch.bfloat16, 200)):
         w, args = _teacher_case(B, L, S, dtype, seed=21)
         png, pnc, h0a, h0d, keys, memory, mask = args
-        ref = td.teacher_decoder_fwd_reference(png, pnc, h0a, h0d, w, keys, memory, mask)
-        if S < 64:
-            out = td.teacher_decoder_fwd(png, pnc, h0a, h0d, w, keys, memory, mask)
-            torch.cuda.synchronize()
-            errs = {"xs": _rel_err(out[0], ref[0]), "ha": _rel_err(out[2], ref[2]),
-                    **{f"hd_{i}": _rel_err(out[3][i], ref[3][i]) for i in range(N)}}
-            e_al = (out[1] - ref[1]).abs().max().item()
-            xt, at = ftol[dtype]
-            log(f"[teacher_fwd] B={B} L={L} S={S} H=A={H} D={D} {str(dtype)[6:]}: "
-                + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
-                + f" (relative, tol {xt:.0e}); align {e_al:.3e} (absolute, tol {at:.0e})")
-            if not (all(e <= xt for e in errs.values()) and e_al <= at):
-                raise AssertionError(f"teacher_decoder_fwd disagrees with its plain version")
-            worst["fwd"] = max(worst["fwd"], *errs.values(), e_al)
+        ref, err = _check_teacher_fwd(w, args, ftol[dtype])
+        worst["fwd"] = max(worst["fwd"], err)
         # the backward's prologue alone, from the plain forward's states:
         # with the alignments shifted into pp, as the train path gives it,
         # and with a random pp (the prologue must not assume the shift); the
@@ -953,14 +1003,29 @@ def phase_teacher(bigru_wgrad_err):
             raise AssertionError("dkeys disagrees with its plain version")
         dk_worst = max(dk_worst, e_k, e_v)
 
-    # timing at the B=32 train batch's shape: S=200 steps, L=192, bf16
+    # timing at the B=32 train batch's shape: S=200 steps, L=192, bf16; the
+    # forward at the plan's C, its device ms and per-step latency bound
+    # (probed on this card), then a sweep over C at B=32 and B=1
     dtype = torch.bfloat16
+    probe = _latency_probe(td.CLUSTER_SIZES)
     w, args = _teacher_case(B, L, S, dtype, seed=24)
     png, pnc, h0a, h0d, keys, memory, mask = args
     fwd = lambda: td.teacher_decoder_fwd(png, pnc, h0a, h0d, w, keys, memory, mask)
-    ms = cuda_time_ms(fwd, reps=3)
+    dev, _ = _device_split_ms(fwd, ("teacher_fwd",))
     plain_ms = cuda_time_ms(lambda: td.teacher_decoder_fwd_reference(
         png, pnc, h0a, h0d, w, keys, memory, mask), reps=1)
+    sweep, plan_b = {}, {}
+    for b_ in (B, 1):
+        wb, ab = (w, args) if b_ == B else _teacher_case(1, L, S, dtype, seed=28)
+        t_ms = cuda_time_ms(lambda: td.teacher_decoder_fwd(*ab[:4], wb, *ab[4:]), reps=3)
+        c_b, co_b = td.fwd_last_plan
+        plan_b[b_] = (t_ms, c_b, co_b, _teacher_fwd_latency_bound_ms(wb, ab[4], ab[5], S, c_b,
+                                                                     co_b, probe))
+        counts = td.fwd_cluster_counts((S, b_, L, A, D, H, N), 1, keys.device)
+        sweep[b_] = {c: round(cuda_time_ms(lambda c=c: td._teacher_fwd_cuda(
+            *ab[:4], wb, *ab[4:], cluster=c), reps=3), 3) for c in td.CLUSTER_SIZES
+            if counts[c] > 0}
+    ms, C, coresident, lat_ms = plan_b[B]
     xs, align, ha, hds = fwd()
     wts = [t for t in w.flat()]
     macs = (H * 2 * H + H * H + H * A + D * 4 * H + H * H + L * D
@@ -970,11 +1035,19 @@ def phase_teacher(bigru_wgrad_err):
                       bf16_flops=2 * S * B * macs, f32_flops=S * B * (3 * L * A + 4 * L))
     result["teacher_decoder_fwd"] = {"max_abs_err": worst["fwd"], "ms": ms,
                                      "plain_ms": plain_ms, "bound_ms": bound[0],
-                                     "bound_by": bound[1],
+                                     "bound_by": bound[1], "bound_latency_ms": lat_ms,
+                                     "cluster": C, "ms_b1": plan_b[1][0],
                                      "shape": f"B={B} L={L} S={S} H=A={H} D={D} bf16",
-                                     "error": "xs/states relative to peak, align absolute"}
-    log(f"[teacher_fwd] B={B} L={L} S={S} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound[0]:.4f} ms ({bound[1]})")
+                                     "error": "xs/states relative to peak, align absolute; "
+                                              "B=32 L=192 at S=12, 20 and 200, B=3 L=13, "
+                                              "D=384, f32 and bf16, every C"}
+    log(f"[teacher_fwd] B={B} L={L} S={S} bf16: kernel {ms:.3f} ms at C={C} ({coresident} "
+        f"clusters co-resident; device {dev['teacher_fwd']:.3f} ms), plain {plain_ms:.3f} ms, "
+        f"bound {bound[0]:.4f} ms ({bound[1]}), latency bound {lat_ms:.3f} ms ({5 + 2 * N} "
+        f"phases a step; {100 * lat_ms / ms:.1f} % of the kernel's time)")
+    for b_, (t_ms, c_b, _, l_ms) in plan_b.items():
+        log(f"[teacher_fwd] B={b_} L={L} S={S} bf16: plan C={c_b} {t_ms:.3f} ms, latency bound "
+            f"{l_ms:.3f} ms ({100 * l_ms / t_ms:.1f} %); by C: {json.dumps(sweep[b_])} ms")
     bargs = _teacher_bwd_args(args, w, (xs, align, ha, hds), seed=25)
     png, pnc, ha, hap, hds, hdps, xs, align, pp, dxs, dal = bargs[:11]
     run = lambda: td._bwd_kernel(*bargs)
@@ -989,7 +1062,6 @@ def phase_teacher(bigru_wgrad_err):
                       bf16_flops=2 * S * B * macs, f32_flops=S * B * 5 * L * A)
     # the scan's per-step latency bound, and the one of the design before
     # the prologue (every product on the chain), from this card's latencies
-    probe = _latency_probe((1,))
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     lat = {hoisted: _teacher_bwd_latency_bound_ms(
         S, B, _teacher_bwd_phases(N, hoisted),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of one checkout of the port, for an A/B in turns.
 
-    python3 gl_ab.py DIR [build] [--mode gl|decoder|teacher]
+    python3 gl_ab.py DIR [build] [--mode gl|decoder|teacher|teacher_fwd]
 
 Runs the port of the checkout in DIR (any commit of it) on inputs made by
 this checkout's ``chip_smoke.py`` and prints one ``AB`` line.  ``build``
@@ -28,6 +28,11 @@ builds every kernel library of DIR first.
   (``training.make_train_step``, random weights from a seed, the batch of
   ``phase_train``): the median of three host-clock steps ending in a
   synchronise, and one more step's device-busy ms (profiler).
+- ``teacher_fwd``: the teacher-forced forward (kernel 6,
+  ``ops.teacher_decoder.teacher_decoder_fwd``) at B=32 L=192 S=200 H=A=256
+  D=320 bf16 (the inputs of ``phase_teacher``): its call time (CUDA events;
+  the cluster size where the checkout has one) and its launch's device time
+  (profiler), then the bare train step as for ``teacher``.
 
 To compare two versions on one card, run it in turns in one command:
 parent, change, change, parent.  Needs a CUDA device.
@@ -102,9 +107,27 @@ def _decoder(c, torch):
     return " | ".join(parts)
 
 
-def _teacher(c, torch):
+def _train_step(c, torch, B=32, L=192):
+    """The bare train step at full-width ``multispeaker_vctk`` B=32 L=192
+    T=1000 bf16: the median of three host-clock steps and one more step's
+    device-busy ms."""
     from tacotron_multispeaker_torch import training
     from tacotron_multispeaker_torch.config import get_config
+    cfg = get_config("multispeaker_vctk")
+    model, state = training.create_train_state(cfg, seed=0)
+    step = training.make_train_step(cfg, model)
+    batch = c._train_batch(cfg, B, L, 1000, seed=5, device="cuda")
+    holder = [state]
+
+    def one():
+        holder[0] = step(holder[0], *batch)[0]
+
+    one()
+    one()
+    return f"train step B={B} {_host_ms(torch, one):.2f} ms busy {_busy_ms(torch, one):.2f}"
+
+
+def _teacher(c, torch):
     from tacotron_multispeaker_torch.ops import teacher_decoder as td
     B, L, S = 32, 192, 200
     w, args = c._teacher_case(B, L, S, torch.bfloat16, seed=24)
@@ -117,19 +140,22 @@ def _teacher(c, torch):
     parts = [f"kernel 8 B={B} L={L} S={S} {ms:.3f} ms "
              + str({k: round(v, 3) for k, v in split.items()})]
     del bargs, states
-    cfg = get_config("multispeaker_vctk")
-    model, state = training.create_train_state(cfg, seed=0)
-    step = training.make_train_step(cfg, model)
-    batch = c._train_batch(cfg, B, L, 1000, seed=5, device="cuda")
-    holder = [state]
+    parts.append(_train_step(c, torch, B, L))
+    return " | ".join(parts)
 
-    def one():
-        holder[0] = step(holder[0], *batch)[0]
 
-    one()
-    one()
-    parts.append(f"train step B={B} {_host_ms(torch, one):.2f} ms busy "
-                 f"{_busy_ms(torch, one):.2f}")
+def _teacher_fwd(c, torch):
+    from tacotron_multispeaker_torch.ops import teacher_decoder as td
+    B, L, S = 32, 192, 200
+    w, args = c._teacher_case(B, L, S, torch.bfloat16, seed=24)
+    run = lambda: td.teacher_decoder_fwd(*args[:4], w, *args[4:])  # noqa: E731
+    ms = c.cuda_time_ms(run, reps=5)
+    plan = getattr(td, "fwd_last_plan", None)
+    split, _ = c._device_split_ms(run, ("teacher_fwd",))
+    parts = [f"kernel 6 B={B} L={L} S={S} {ms:.3f} ms" + (f" (C={plan[0]})" if plan else "")
+             + f" device {split['teacher_fwd']:.3f}"]
+    del args
+    parts.append(_train_step(c, torch, B, L))
     return " | ".join(parts)
 
 
@@ -139,7 +165,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("dir")
     ap.add_argument("build", nargs="?", choices=["build"])
-    ap.add_argument("--mode", choices=["gl", "decoder", "teacher"], default="gl")
+    ap.add_argument("--mode", choices=["gl", "decoder", "teacher", "teacher_fwd"],
+                    default="gl")
     opts = ap.parse_args()
     root = os.path.abspath(opts.dir)
     os.chdir(root)
@@ -152,7 +179,8 @@ def main() -> int:
     if opts.build:
         from tacotron_multispeaker_torch.ops import KERNELS, cuda_build
         cuda_build.build_all(KERNELS)
-    line = {"gl": _gl, "decoder": _decoder, "teacher": _teacher}[opts.mode](c, torch)
+    line = {"gl": _gl, "decoder": _decoder, "teacher": _teacher,
+            "teacher_fwd": _teacher_fwd}[opts.mode](c, torch)
     print(f"AB {opts.mode} {opts.dir}: {line}", flush=True)
     return 0
 

@@ -112,106 +112,6 @@ struct Args {
   int B, L, A, D, H, M, P1, P2, RM, n_layers, n_steps, C;
 };
 
-// x, bias (-1: none) and out: float offsets into the dynamic shared memory
-template <typename T>
-__device__ void set_job(Job<T>& j, int N, int c0, int ng, int c1, int ng1, int bias,
-                        int out) {
-  j.nseg = 0;
-  j.N = N;
-  j.c0[0] = c0; j.ng[0] = ng;
-  j.c0[1] = c1; j.ng[1] = ng1;
-  j.bias = bias;
-  j.out = out;
-}
-
-template <typename T>
-__device__ void add_seg(Job<T>& j, int x, const T* W, int K) {
-  j.s[j.nseg].x = x;
-  j.s[j.nseg].W = W;
-  j.s[j.nseg].K = K;
-  ++j.nseg;
-}
-
-// Each position's energy over this CTA's A columns [a0, a0 + na):
-// out[l] = sum_a tanh(keys[l, a] + q[a - a0]) * vv[a] (f32; 0 when na = 0).
-// tpl lanes share a position.  q, vv, out: float offsets into the dynamic
-// shared memory.  Ends with a barrier of the CTA.
-template <typename T>
-__device__ __noinline__ void energy_partials(const T* __restrict__ keys, int q_at, int vv_at,
-                                             int a0, int na, int L, int A, int out_at) {
-  constexpr int VEC = Vec<T>::N;
-  float* sm = dyn_smem();
-  const float* q = sm + q_at;
-  const float* vv = sm + vv_at;
-  float* out = sm + out_at;
-  const int tid = threadIdx.x, nag = na / VEC;
-  int tpl = 1;
-  while (tpl < 32 && 2 * tpl * L <= CTHREADS) tpl *= 2;
-  const int span = L * tpl;
-  for (int base = 0; base < span; base += CTHREADS) {   // same trip count for all
-    const int idx = base + tid, l = idx / tpl, sub = idx % tpl;
-    const int n_it = l < L && sub < nag ? (nag - 1 - sub) / tpl + 1 : 0;
-    const T* kr = keys + size_t(l < L ? l : 0) * A + a0;
-    float s = 0.f;
-    for (int it = 0; it < n_it; it += 4) {        // four 16-byte loads in flight
-      uint4 raw[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) raw[u] = ld16(kr + (sub + (it + u < n_it ? it + u : 0) * tpl) * VEC);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (it + u < n_it) {
-          const int c = (sub + (it + u) * tpl) * VEC;
-          float kv[VEC];
-          unpack16<T>(raw[u], kv);
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) s = fmaf(tanhf(kv[i] + q[c + i]), vv[a0 + c + i], s);
-        }
-      }
-    }
-    for (int off = tpl >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (l < L && sub == 0) out[l] = s;
-  }
-  __syncthreads();
-}
-
-// e[l] = the C partial energies summed (in rank order, so every CTA gets the
-// same value), -1e9 where the mask is 0; then the masked softmax in place,
-// e[l] = exp(e[l] - max) * mask / max(sum, 1e-9); positions [l0, l0 + nl)
-// also go to ``align``.  epart, mk, e, scratch: float offsets into the
-// dynamic shared memory.  Ends with a barrier of the CTA.
-__device__ __noinline__ void cluster_softmax(int epart_at, int mk_at, int L, int C, int e_at,
-                                             float* __restrict__ align, int l0, int nl,
-                                             int scratch_at) {
-  float* sm = dyn_smem();
-  const float* epart = sm + epart_at;
-  const float* mk = sm + mk_at;
-  float* e = sm + e_at;
-  float* scratch = sm + scratch_at;
-  const int tid = threadIdx.x;
-  float m = -INFINITY;
-  for (int l = tid; l < L; l += CTHREADS) {
-    float s = 0.f;
-    for (int r = 0; r < C; ++r) s += epart[r * L + l];
-    s = mk[l] != 0.f ? s : -1e9f;
-    e[l] = s;
-    m = fmaxf(m, s);
-  }
-  m = cta_reduce<true>(m, scratch);
-  float s = 0.f;
-  for (int l = tid; l < L; l += CTHREADS) {
-    const float p = mk[l] != 0.f ? expf(e[l] - m) : 0.f;
-    e[l] = p;
-    s += p;
-  }
-  s = fmaxf(cta_reduce<false>(s, scratch), 1e-9f);
-  for (int l = tid; l < L; l += CTHREADS) {
-    const float p = e[l] / s;
-    e[l] = p;
-    if (l >= l0 && l < l0 + nl) align[l] = p;
-  }
-  __syncthreads();
-}
-
 // Floats of the scratch vectors wo and tmp: the widest job output or
 // staged broadcast (P1, P2, 2H, A, D, r*M).
 __host__ __device__ __forceinline__ int out_max(int P1, int P2, int H, int A, int D, int RM) {

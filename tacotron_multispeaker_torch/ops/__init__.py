@@ -15,6 +15,9 @@ integers count the kernel launches.
 * :mod:`.teacher_decoder` — the teacher-forced decoder scan: forward
   (``_teacher_decoder_fwd_pallas``), backward (``_teacher_decoder_bwd_pallas``),
   d_keys (``_dkeys_pallas``) and the autograd Function ``TeacherDecoder``.
+* :mod:`.cluster_plan` — the cluster size of the two kernels that run a
+  batch row on a thread-block cluster (the decoder loop, the teacher-forced
+  forward).
 * :mod:`.wgrad` — the weight-gradient reduction of both backward kernels
   (the per-step ``dot_tn`` sums inside the two Pallas backward kernels).
 * :mod:`.conv_bank` — ``conv_bank``, the CBHG conv bank as one product

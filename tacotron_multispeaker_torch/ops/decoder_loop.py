@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_build
+from .cluster_plan import CLUSTER_SIZES, launch_plan
 from ..models.helpers import feedback_frame
 
 # launches of the CUDA kernel (the plain version does not count)
@@ -39,7 +40,6 @@ last_plan: tuple[int, int] | None = None
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 _NTHREADS = 384       # csrc/cluster_common.cuh CTHREADS (threads of a CTA)
 _MAX_LAYERS = 4
-CLUSTER_SIZES = (16, 8, 4, 2, 1)
 _HEAD_BYTES = 2256         # csrc/decoder_loop.cu HEAD_FLOATS * 4: 21 jobs, 16 plans
 _cluster_counts: dict[tuple, dict[int, int]] = {}
 
@@ -200,17 +200,6 @@ def check_limits(*, L, A, D, H, M, P1, P2, RM, n_layers, vec) -> None:
     if smem > _SMEM_LIMIT:
         raise ValueError(f"decoder_loop kernel: L={L} needs {smem} bytes of "
                          f"shared memory (> {_SMEM_LIMIT})")
-
-
-def launch_plan(B: int, H: int, vec: int, clusters: dict) -> int:
-    """The cluster size C for a batch of B rows: the largest of 16, 8, 4, 2
-    that leaves every CTA some of the H hidden units (C <= H / vec) and of
-    which the card holds all B clusters at once (``clusters[C]``, its
-    co-resident count), else 1 (one CTA a row; the rows then run in waves)."""
-    for C in CLUSTER_SIZES[:-1]:
-        if C <= H // vec and clusters.get(C, 0) >= B:
-            return C
-    return 1
 
 
 def cluster_counts(dims: tuple, is_bf16: int, device) -> dict:

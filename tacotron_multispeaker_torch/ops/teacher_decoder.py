@@ -4,7 +4,10 @@ and their plain PyTorch versions.
 Port of ``tacotron_multispeaker_tpu/ops/teacher_decoder.py``:
 
 * forward ``_teacher_decoder_fwd_pallas`` → ``csrc/teacher_decoder_fwd.cu``
-  (:func:`teacher_decoder_fwd`, plain :func:`teacher_decoder_fwd_reference`);
+  (:func:`teacher_decoder_fwd`, plain :func:`teacher_decoder_fwd_reference`):
+  a thread-block cluster of C CTAs runs one batch row, C from
+  :func:`launch_plan` over the card's co-resident cluster counts
+  (:func:`fwd_cluster_counts`), as the fused decoder loop picks it;
 * backward ``_teacher_decoder_bwd_pallas`` → ``csrc/teacher_decoder_bwd.cu``
   (:func:`teacher_decoder_bwd`, plain :func:`teacher_decoder_bwd_reference`):
   two launches, the carry-free prologue over all S·B rows
@@ -33,8 +36,9 @@ dtype and sums in f32; the weights are read in the compute dtype
 (:meth:`TeacherDecoderWeights.cast`).
 
 CPU tensors take the plain versions, CUDA tensors the kernels; anything else
-raises.  No kernel needs padding: a block runs one batch row, so ragged
-lengths and any L are handled by the mask alone.
+raises.  No kernel needs padding: a cluster (forward) or a block (backward)
+runs one batch row, so ragged lengths and any L are handled by the mask
+alone.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_build, wgrad
+from .cluster_plan import CLUSTER_SIZES, launch_plan
 
 # launches of the CUDA kernels (the plain versions do not count)
 fwd_launches = 0          # csrc/teacher_decoder_fwd.cu
@@ -52,9 +57,15 @@ bwd_launches = 0          # csrc/teacher_decoder_bwd.cu, the reverse-time scan
 bwd_remat_launches = 0    # csrc/teacher_decoder_bwd.cu, the prologue before it
 dkeys_launches = 0    # csrc/dkeys.cu
 
+# (C, co-resident clusters of C) of the forward kernel's last launch
+fwd_last_plan: tuple[int, int] | None = None
+
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-_NTHREADS = 512       # csrc/decoder_common.cuh NTHREADS
+_NTHREADS = 512       # csrc/decoder_common.cuh NTHREADS (the backward's blocks)
+_CTHREADS = 384       # csrc/cluster_common.cuh CTHREADS (the forward's CTAs)
+_FWD_HEAD_BYTES = 2000    # csrc/teacher_decoder_fwd.cu HEAD_FLOATS * 4: 19 jobs, 13 plans
 _MAX_LAYERS = 4
+_fwd_cluster_counts: dict[tuple, dict[int, int]] = {}
 _F32_FIELDS = ("d_b", "b_r")   # the biases: f32 in every version
 
 
@@ -409,18 +420,88 @@ def teacher_decoder_fwd(png, pnc, h0a, h0d, weights: TeacherDecoderWeights, keys
     """Fused teacher-forced forward → (xs, align, ha, hds) (see
     :func:`teacher_decoder_fwd_reference`)."""
     B, H, N = png.shape[1], png.shape[2] // 2, len(weights.w_r)
-    S, B, H, L, A, D, N = _check_common(png, pnc, weights, keys, memory, mask, extra={
+    _check_common(png, pnc, weights, keys, memory, mask, extra={
         "h0a": (h0a, (B, H)), "h0d": (h0d, (N, B, H))})
     if png.device.type == "cpu":
         return teacher_decoder_fwd_reference(png, pnc, h0a, h0d, weights, keys, memory, mask)
     if png.device.type != "cuda":
         raise ValueError(f"teacher_decoder_fwd runs on cpu or cuda, not {png.device}")
+    return _teacher_fwd_cuda(png, pnc, h0a, h0d, weights, keys, memory, mask)
+
+
+def fwd_smem_bytes(L, A, D, H, N, C, vec) -> int:
+    """Shared memory one CTA of the forward kernel takes (csrc/
+    teacher_decoder_fwd.cu ``smem_floats``: the job and plan tables, the
+    png/pnc staging, the biases and the vectors)."""
+    stage = 3 * H * (16 // vec) // 4
+    floats = (stage + _CTHREADS * (vec + 32) + 64 + 15 * H + 4 * N * H + 2 * A + D
+              + max(H, D) + (C + 2) * L)
+    return 4 * floats + _FWD_HEAD_BYTES
+
+
+def fwd_check_limits(*, L, A, D, H, N, vec) -> None:
+    """Raise ValueError where the forward kernel cannot take these widths
+    (the limits of csrc/teacher_decoder_fwd.cu's source note, at C = 1,
+    which every batch can fall back to; a larger C only narrows each CTA's
+    share, and :func:`fwd_cluster_counts` gives 0 for a C whose shared
+    memory does not fit)."""
+    if N > _MAX_LAYERS:
+        raise ValueError(f"teacher_decoder_fwd kernel: {N} layers > {_MAX_LAYERS}")
+    top = vec * _CTHREADS
+    for name, n in (("H", H), ("A", A), ("D", D)):
+        if n % vec:
+            raise ValueError(f"teacher_decoder_fwd kernel: width {name}={n} must be a "
+                             f"multiple of {vec}")
+    for name, n in (("4H", 4 * H), ("A+H", A + H), ("D", D)):
+        if n > top:
+            raise ValueError(f"teacher_decoder_fwd kernel: {name}={n} (one phase's "
+                             f"columns) must be at most {top}")
+    smem = fwd_smem_bytes(L, A, D, H, N, 1, vec)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"teacher_decoder_fwd kernel: L={L} needs {smem} bytes of "
+                         f"shared memory (> {_SMEM_LIMIT})")
+
+
+def fwd_cluster_counts(dims: tuple, is_bf16: int, device) -> dict:
+    """{C: clusters of C CTAs the card can hold at once} for the forward
+    kernel at ``dims`` (S, B, L, A, D, H, N) on ``device``
+    (cudaOccupancyMaxActiveClusters; 0 where a CTA's shared memory would not
+    fit).  Cached by widths, dtype and device."""
+    _, _, L, A, D, H, N = dims
+    key = (tuple(dims[2:]), is_bf16, device)
+    if key not in _fwd_cluster_counts:
+        lib, counts = _lib("teacher_decoder_fwd"), {}
+        for C in CLUSTER_SIZES:
+            if fwd_smem_bytes(L, A, D, H, N, C, 8 if is_bf16 else 4) > _SMEM_LIMIT:
+                counts[C] = 0
+                continue
+            d = (ctypes.c_int * 9)(*dims, is_bf16, C)
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = lib.teacher_decoder_fwd_max_clusters(ctypes.cast(d, ctypes.c_void_p),
+                                                           ctypes.byref(n))
+            cuda_build.check(err, f"teacher_decoder_fwd cluster occupancy query (C={C})")
+            counts[C] = n.value
+        _fwd_cluster_counts[key] = counts
+    return _fwd_cluster_counts[key]
+
+
+def _teacher_fwd_cuda(png, pnc, h0a, h0d, weights, keys, memory, mask,
+                      cluster: int | None = None):
+    """The forward kernel's launch (shapes already checked).  ``cluster``
+    forces the cluster size (kernel checks only; the train path leaves it to
+    :func:`launch_plan` over :func:`fwd_cluster_counts`)."""
+    S, B, H2 = png.shape
+    H, N = H2 // 2, len(weights.w_r)
+    L, A, D = keys.shape[1], keys.shape[2], memory.shape[-1]
     cdt = keys.dtype
     typed = [("png", png, cdt), ("pnc", pnc, cdt), ("keys", keys, cdt),
              ("memory", memory, cdt), ("mask", mask, torch.bool),
              ("h0a", h0a, torch.float32), ("h0d", h0d, torch.float32)]
     _kernel_checks("teacher_decoder_fwd", cdt, H, A, D, N,
                    typed + _weights_typed(weights, cdt))
+    vec = 16 // keys.element_size()
+    fwd_check_limits(L=L, A=A, D=D, H=H, N=N, vec=vec)
     f32 = dict(dtype=torch.float32, device=png.device)
     xs = torch.empty((S, B, H), **f32)
     align = torch.empty((S, B, L), **f32)
@@ -432,13 +513,23 @@ def teacher_decoder_fwd(png, pnc, h0a, h0d, weights: TeacherDecoderWeights, keys
     flat = [png, pnc, keys, memory, mask, h0a, h0d, w.a_hg, w.a_hc, w.wq, w.v, w.w_ctx,
             w.wd_h, w.d_b, xs, align, ha]
     for i in range(N):
-        flat += [w.w_r[i], w.b_r[i], w.hg[i], w.hc[i], hds[i]]
-    lib = _lib("teacher_decoder_fwd")
-    dims, dims_p = _dims(S, B, L, A, D, H, N, cdt)
-    _smem_check(lib.teacher_decoder_fwd_smem_bytes, "teacher_decoder_fwd", dims_p)
-    _launch("teacher_decoder_fwd", lib.teacher_decoder_fwd_launch, flat, dims_p)
-    global fwd_launches
+        # w_r's gate and candidate columns as their own matrices: a phase's
+        # products read their weights at one row stride
+        flat += [w.w_r[i][:, :2 * H].contiguous(), w.w_r[i][:, 2 * H:].contiguous(),
+                 w.b_r[i], w.hg[i], w.hc[i], hds[i]]
+    is_bf16 = int(cdt == torch.bfloat16)
+    dims = (S, B, L, A, D, H, N)
+    counts = fwd_cluster_counts(dims, is_bf16, png.device)
+    C = launch_plan(B, H, vec, counts) if cluster is None else cluster
+    if C not in CLUSTER_SIZES or counts[C] == 0:
+        raise ValueError(f"teacher_decoder_fwd kernel: the card holds no cluster of {C} "
+                         f"CTAs at these widths (co-resident clusters {counts})")
+    cdims = (ctypes.c_int * 9)(*dims, is_bf16, C)
+    _launch("teacher_decoder_fwd", _lib("teacher_decoder_fwd").teacher_decoder_fwd_launch,
+            flat, ctypes.cast(cdims, ctypes.c_void_p))
+    global fwd_launches, fwd_last_plan
     fwd_launches += 1
+    fwd_last_plan = (C, counts[C])
     return xs, align, ha, tuple(hds)
 
 
@@ -721,6 +812,9 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.dkeys_l_blocks.argtypes = [i]
             lib.dkeys_l_blocks.restype = i
         else:
+            if name == "teacher_decoder_fwd":
+                lib.teacher_decoder_fwd_max_clusters.argtypes = [p, p]
+                lib.teacher_decoder_fwd_max_clusters.restype = i
             stems = [name] + ([f"{name}_remat"] if name == "teacher_decoder_bwd" else [])
             for stem in stems:
                 launch = getattr(lib, f"{stem}_launch")

@@ -349,18 +349,27 @@ def _teacher_on_card(cuda, dtype, S=6, B=3, L=13, H=128, A=128, D=96, seed=8):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [6, 150])
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16])
 @pytest.mark.parametrize("dtype,xtol,atol", [(torch.float32, 1e-4, 1e-5),
                                             (torch.bfloat16, 5e-2, 1e-3)])
-def test_teacher_forward_kernel_matches_plain_on_card(cuda, dtype, xtol, atol):
-    # L=13 and D=96 are no multiple of the TPU's tiles; f32 differs in sum
-    # order only; bf16 flips roundings of matmul inputs (xs, states 5e-2),
-    # energies and softmax stay f32 on both sides (alignments 1e-3)
-    _, w, args = _teacher_on_card(cuda, dtype)
+def test_teacher_forward_kernel_matches_plain_on_card(cuda, dtype, xtol, atol, cluster, S):
+    # L=13 and D=96 are no multiple of the TPU's tiles, and at C=16 some
+    # CTAs hold no position and no context column; f32 differs in sum order
+    # only; bf16 flips roundings of matmul inputs (xs, states 5e-2),
+    # energies and softmax stay f32 on both sides (alignments 1e-3).
+    # cluster None: the launch plan's C; else C forced through the launcher
+    _, w, args = _teacher_on_card(cuda, dtype, S=S)
     before = ttd.fwd_launches
-    out = ttd.teacher_decoder_fwd(*args[:4], w, *args[4:])
+    if cluster is None:
+        out = ttd.teacher_decoder_fwd(*args[:4], w, *args[4:])
+    else:
+        out = ttd._teacher_fwd_cuda(*args[:4], w, *args[4:], cluster=cluster)
     ref = ttd.teacher_decoder_fwd_reference(*args[:4], w, *args[4:])
     torch.cuda.synchronize()
     assert ttd.fwd_launches == before + 1
+    if cluster is not None:
+        assert ttd.fwd_last_plan[0] == cluster
     for name, a, b in zip(("xs", "align", "ha"), out[:3], ref[:3]):
         assert _err(a, b) <= (atol if name == "align" else xtol), (name, _err(a, b))
     for a, b in zip(out[3], ref[3]):
@@ -508,6 +517,21 @@ def test_training_kernels_raise_outside_their_limits_on_card(cuda):
     with pytest.raises(ValueError, match="multiple of 4"):             # H=30
         ttd.teacher_decoder_fwd(*teacher_args(arrays, cuda)[:4], teacher_weights(w, cuda),
                                 *teacher_args(arrays, cuda)[4:])
+    # f32 H=400: every width fits a block, but the context block's 4H = 1600
+    # columns exceed one 16-byte group a thread of a CTA at C = 1
+    w, arrays = teacher_case(rs, S=3, B=2, L=5, H=400, A=16, D=24)
+    fwd_before = ttd.fwd_launches
+    with pytest.raises(ValueError, match="4H=1600"):
+        ttd.teacher_decoder_fwd(*teacher_args(arrays, cuda)[:4], teacher_weights(w, cuda),
+                                *teacher_args(arrays, cuda)[4:])
+    assert ttd.fwd_launches == fwd_before
+    # the wrapper's shared-memory count is the forward kernel's own
+    lib = ttd._lib("teacher_decoder_fwd")
+    for C in ttd.CLUSTER_SIZES:
+        for is_bf16, vec in ((0, 4), (1, 8)):
+            dims = (ctypes.c_int * 9)(200, 32, 192, 256, 384, 256, 2, is_bf16, C)
+            got = lib.teacher_decoder_fwd_smem_bytes(ctypes.cast(dims, ctypes.c_void_p))
+            assert got == ttd.fwd_smem_bytes(192, 256, 384, 256, 2, C, vec)
     keys = torch.zeros((2, 5, 1040), device=cuda)
     with pytest.raises(ValueError, match="1024 threads"):
         ttd.dkeys(keys, torch.zeros((3, 2, 1040), device=cuda),

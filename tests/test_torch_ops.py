@@ -167,6 +167,52 @@ def test_decoder_loop_launch_plan_caps():
     assert tdl.launch_plan(1, 256, 8, {1: 132}) == 1
 
 
+@pytest.mark.parametrize("name,D", [("tiny", 64), ("single_speaker", 256),
+                                    ("multispeaker_vctk", 320), ("pod_synthesis", 384)])
+def test_teacher_fwd_limits_take_every_preset(name, D):
+    # the widths each preset gives the teacher-forced forward kernel, at its
+    # longest input, in both compute types, and a CTA's shared memory at
+    # every cluster size
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.models.tacotron import _speaker_dim
+    cfg = get_config(name)
+    m, L = cfg.model, cfg.train.max_input_length
+    assert m.encoder_depth + _speaker_dim(cfg, "memory") == D
+    for vec in (4, 8):
+        ttd.fwd_check_limits(L=L, A=m.attention_depth, D=D, H=m.decoder_depth,
+                             N=m.decoder_layers, vec=vec)
+        for C in ttd.CLUSTER_SIZES:
+            assert ttd.fwd_smem_bytes(L, m.attention_depth, D, m.decoder_depth,
+                                      m.decoder_layers, C, vec) <= ttd._SMEM_LIMIT
+
+
+def test_teacher_fwd_limits_raise():
+    ok = dict(L=192, A=256, D=384, H=256, N=2, vec=8)
+    ttd.fwd_check_limits(**ok)
+    for bad, match in (({"N": 5}, "layers"), ({"D": 324}, "D=324"), ({"H": 252}, "H=252"),
+                       ({"H": 400, "vec": 4}, "4H=1600"), ({"A": 2880}, "A\\+H=3136"),
+                       ({"D": 3080}, "D=3080"), ({"L": 20000}, "shared memory")):
+        with pytest.raises(ValueError, match=match):
+            ttd.fwd_check_limits(**{**ok, **bad})
+
+
+def test_teacher_fwd_smem_grows_with_the_cluster():
+    # each CTA keeps every rank's partial energies (C x L floats)
+    one = ttd.fwd_smem_bytes(192, 256, 320, 256, 2, 1, 8)
+    assert ttd.fwd_smem_bytes(192, 256, 320, 256, 2, 16, 8) == one + 15 * 192 * 4
+
+
+@pytest.mark.parametrize("B,want", [(1, 16), (32, 2), (200, 1)])
+def test_teacher_fwd_launch_plan(B, want):
+    # the decoder loop's rule over the forward kernel's own co-resident
+    # counts (those the card gives kernel 5 at these widths): C=2 at the
+    # train batch's B=32, C=16 at B=1, one CTA a row past 66 rows
+    counts = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+    assert ttd.launch_plan(B, 256, 8, counts) == want
+    # tiny's H=64 in bf16 leaves 8 groups of 8: no C above 8
+    assert ttd.launch_plan(1, 64, 8, counts) == 8
+
+
 def _close(a, b, tol, what=""):
     """max |a - b| <= tol · max(|b|, 1e-6) (relative to b's peak)."""
     a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)

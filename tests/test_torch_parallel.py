@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tacotron_multispeaker_torch import config as tconfig
+from tacotron_multispeaker_torch.device import warm_cpu_math
 from tacotron_multispeaker_torch.models.attention import make_attention
 from tacotron_multispeaker_torch.ops import attention_step as tas
 from tacotron_multispeaker_torch.ops.sharded_attention import make_sharded_attention_step
@@ -29,6 +30,15 @@ from tacotron_multispeaker_torch.training import sharded_speaker_embed
 OVERRIDES = ("model.compute_dtype=float32,model.prenet_dropout=0.0,model.num_speakers=16,"
              "model.speaker_embed_depth=8,parallel.model_parallel_size=4,"
              "parallel.shard_speaker_table_min=8,audio.gl_method=dft_f32")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_math_ready():
+    # the tests call the port's ops on CPU tensors directly, not through an
+    # entry point, so they make PyTorch's float32 math ready as the entry
+    # points do (device.warm_cpu_math: a thread's first tanh of a process can
+    # err by ~1e-4)
+    warm_cpu_math()
 
 
 def _jax():
@@ -58,6 +68,40 @@ def _partial_case(rs, B=4, L=256, A=32, D=48):
             np.arange(L)[None, :] < lengths[:, None], lengths)
 
 
+def _partial_f64(keys, q, v, mem, mask):
+    """attention_step_partial's function in float64 numpy."""
+    f = lambda a: np.asarray(a, np.float64)
+    e = (np.tanh(f(keys) + f(q)[:, None, :]) * f(v)).sum(-1)
+    e = np.where(mask, e, -1e9)
+    m = e.max(-1, keepdims=True)
+    p = np.exp(e - m) * mask
+    return np.einsum("bl,bld->bd", p, f(mem)), p, m, p.sum(-1, keepdims=True)
+
+
+def _partial_diagnosis(inputs, sides, jax):
+    """What a failure of the parity test below reports: each side's largest
+    distance from the float64 function per output, and the process's
+    numeric state."""
+    import os
+    exact = _partial_f64(*inputs)
+    dist = {k: {n: float(np.abs(np.asarray(a, np.float64) - b).max())
+                for n, a, b in zip(("ctx", "p", "m", "s"), out, exact)}
+            for k, out in sides.items()}
+    tiny = np.array([1e-40], np.float32)
+    one, ulp = np.float32(1.0), np.float32(2.0 ** -23)
+    # round to nearest takes 1 + ulp/4 to 1 and 1 + 3 ulp/4 to 1 + ulp
+    nearest = (one + ulp / 4 == one) and (one + 3 * ulp / 4 > one)
+    return {"distance from float64": dist,
+            "rounds to nearest (numpy, this thread)": bool(nearest),
+            "torch threads": torch.get_num_threads(),
+            "torch interop threads": torch.get_num_interop_threads(),
+            "torch float32 matmul precision": torch.get_float32_matmul_precision(),
+            "XLA_FLAGS": os.environ.get("XLA_FLAGS"),
+            "jax matmul precision": jax.config.jax_default_matmul_precision,
+            "denormals flushed (numpy)": bool((tiny * np.float32(1.0))[0] == 0.0),
+            "denormals flushed (torch)": bool((torch.from_numpy(tiny) * 1.0)[0] == 0.0)}
+
+
 @pytest.mark.parametrize("shard", [slice(0, 256), slice(64, 128), slice(192, 256)])
 def test_attention_step_partial_plain_matches_jax(shard):
     # f32, the dtype of the sequence-sharded path (the model casts to it);
@@ -71,15 +115,24 @@ def test_attention_step_partial_plain_matches_jax(shard):
     j = [jnp.asarray(a) for a in (keys, q, v, mem, mask)]
     dead = ~mask.any(axis=1)                     # fully masked rows of this shard
     assert dead[3] and dead[1] == (shard.start > 0)
+    sides = {"torch wrapper": tas.attention_step_partial(*t),
+             "torch plain": tas.attention_step_partial_reference(*t)}
+    refs = {"jax pallas interpret": attention_step_partial(*j, interpret=True),
+            "jax reference": attention_step_partial_reference(*j)}
     # the CPU wrapper and the plain version, each against both JAX functions
-    for got in (tas.attention_step_partial(*t), tas.attention_step_partial_reference(*t)):
-        for ref in (attention_step_partial(*j, interpret=True),
-                    attention_step_partial_reference(*j)):
+    for got in sides.values():
+        for ref in refs.values():
             # the same f32 arithmetic in another sum order
             for name, a, b, tol in zip(("ctx", "p", "m", "s"), got, ref,
                                        (1e-4, 1e-5, 1e-5, 1e-5)):
                 assert a.dtype == torch.float32 and tuple(a.shape) == b.shape, name
-                np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=tol, err_msg=name)
+                try:
+                    np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=tol,
+                                               err_msg=name)
+                except AssertionError as e:
+                    diagnosis = _partial_diagnosis((keys, q, v, mem, mask),
+                                                   {**sides, **refs}, jax)
+                    raise AssertionError(f"{e}\n{diagnosis}") from None
         ctx, p, m, s = (a.numpy() for a in got)
         assert (m[dead] == -1e9).all() and (s[dead] == 0).all()
         assert (p[dead] == 0).all() and (ctx[dead] == 0).all()
