@@ -22,7 +22,10 @@ Phases (no failure is caught; any exception exits non-zero):
    C and its per-step latency bound from the same probe.  The teacher-forced
    backward (kernel 8) is held whole and its prologue launch alone, the two
    launches timed apart, its scan's per-step latency bound from the same
-   probe.
+   probe.  The GRU scan backward (kernel 4, two directions; kernel 2, one)
+   likewise: its prologue launch alone and the whole backward at T=192 and
+   1000, F=128 and 32, the two launches timed apart, its scan's per-step
+   latency bound from a shared-memory probe on the card.
 4. Checks ``generate`` at full-width ``multispeaker_vctk``, dropout off: in
    float32 on the card against the plain path on the CPU (the default and
    the location-attention path), and in bfloat16 (the serving precision)
@@ -128,8 +131,10 @@ def _counters():
     return {"bigru_scan": (gru_scan, "launches"),
             "decoder_loop": (decoder_loop, "launches"),
             "bigru_scan_bwd": (gru_scan, "bwd_launches"),
+            "bigru_scan_bwd_remat": (gru_scan, "bwd_remat_launches"),
             "gru_scan": (gru_scan, "gru_launches"),
             "gru_scan_bwd": (gru_scan, "gru_bwd_launches"),
+            "gru_scan_bwd_remat": (gru_scan, "gru_bwd_remat_launches"),
             "teacher_decoder_fwd": (teacher_decoder, "fwd_launches"),
             "dkeys": (teacher_decoder, "dkeys_launches"),
             "teacher_decoder_bwd": (teacher_decoder, "bwd_launches"),
@@ -283,60 +288,14 @@ def phase_gru_scan():
 
 
 def phase_gru_scan_bwd():
-    """Kernel 2 (the one-direction launcher of csrc/bigru_scan_bwd.cu) with
-    its two weight-gradient sums (one wgrad launch) against
-    gru_scan_bwd_reference in f32 and bf16; timed at T=1000, B=32, F=128,
-    bf16.  Returns (the kernel's record, the wgrad error)."""
-    import torch
-    from tacotron_multispeaker_torch.ops import gru_scan as gs
-    F, B = 128, 32
-    names = ("dxg", "dxc", "dwhg", "dwhc", "dh0")
-    tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}     # as bigru_scan_bwd's
-
-    def case(T, dtype, seed):
-        xg, xc, whg, whc, h0 = _gru_inputs(T, B, F, dtype, seed)
-        ys = gs.gru_scan(xg, xc, whg, whc, h0)
-        hprev = torch.cat([h0[None].to(dtype), ys[:-1]]).contiguous()
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        dys = torch.randn(tuple(ys.shape), generator=g, device="cuda").to(dtype)
-        return xg, xc, hprev, dys, whg, whc
-
-    worst = 0.0
-    for T in (192, 1000):
-        for dtype in (torch.float32, torch.bfloat16):
-            args = case(T, dtype, seed=T + 3)
-            out = gs.gru_scan_bwd(*args)
-            ref = gs.gru_scan_bwd_reference(*args)
-            torch.cuda.synchronize()
-            errs = {n: _rel_err(a, b) for n, a, b in zip(names, out, ref)}
-            log(f"[gru_scan_bwd] T={T} B={B} F={F} {str(dtype)[6:]}: max|kernel-plain|/"
-                f"max|plain| " + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
-                + f" (tol {tol[dtype]:.0e})")
-            if not all(e <= tol[dtype] for e in errs.values()):
-                raise AssertionError(f"gru_scan_bwd disagrees with its plain version: {errs}")
-            worst = max(worst, *errs.values())
-    T, dtype = 1000, torch.bfloat16
-    args = case(T, dtype, seed=12)
-    ms = cuda_time_ms(lambda: gs._bwd_kernel(*args), reps=5)
-    plain_ms = cuda_time_ms(lambda: gs.gru_scan_bwd_reference(*args), reps=1)
-    xg, xc, hprev, dys, whg, whc = args
-    dxg, dxc, rh, dh0 = gs._bwd_kernel(*args)
-    bytes_ = _nbytes(xg, xc, hprev, dys, whg, whc, dxg, dxc, rh, dh0)
-    bound_ms, bound_by = _bound_ms(bytes_, bf16_flops=T * B * 12 * F * F)
-    problems = [(hprev, dxg, False), (rh, dxc, False)]
-    w_err = _check_wgrad(problems, f"gru backward, 2 products over {T * B} rows")
-    w_ms, w_plain = _time_wgrad(problems, dtype)
-    log(f"[gru_scan_bwd] T={T} B={B} F={F} bf16: kernel {ms:.3f} ms, plain (with its "
-        f"weight gradients) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); its "
-        f"wgrad launch {w_ms:.3f} ms (plain {w_plain:.3f} ms, bound "
-        f"{_wgrad_bound_ms(problems)[0]:.4f} ms)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "shape": f"T={T} B={B} F={F} bf16",
-            "wgrad_ms": w_ms, "wgrad_plain_ms": w_plain,
-            "error": "max |kernel - plain| / max |plain| over every output"}, w_err
+    """Kernel 2 (the one-direction launchers of csrc/bigru_scan_bwd.cu, see
+    ``_gru_bwd_phase``).  Returns (its record, its prologue's record, the
+    wgrad error)."""
+    return _gru_bwd_phase(1)
 
 
-GRU_LAUNCHES = {"gru_scan": 1, "gru_scan_bwd": 1, "wgrad": 1}   # per forward + backward
+# per forward + backward
+GRU_LAUNCHES = {"gru_scan": 1, "gru_scan_bwd": 1, "gru_scan_bwd_remat": 1, "wgrad": 1}
 
 
 def phase_gru():
@@ -695,58 +654,197 @@ def _check_wgrad(problems, label):
 
 
 def phase_bigru_bwd():
+    """Kernel 4 (csrc/bigru_scan_bwd.cu, two directions, see
+    ``_gru_bwd_phase``).  Returns (its record, its prologue's record, the
+    wgrad error)."""
+    return _gru_bwd_phase(2)
+
+
+def _gru_bwd_case(dirs, T, B, F, dtype, seed):
+    """xg, xc, hprev, dys, whg, whc of the GRU scan backward, two directions
+    or one: the forward kernel's states shifted one step, random cotangents."""
     import torch
     from tacotron_multispeaker_torch.ops import gru_scan as gs
-    F, B = 128, 32
+    inputs, fwd = (_bigru_inputs, gs.bigru_scan) if dirs == 2 else (_gru_inputs, gs.gru_scan)
+    xg, xc, whg, whc, h0 = inputs(T, B, F, dtype, seed)
+    ys = fwd(xg, xc, whg, whc, h0)
+    hprev = torch.cat([h0[None].to(dtype), ys[:-1]]).contiguous()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dys = torch.randn(tuple(ys.shape), generator=g, device="cuda").to(dtype)
+    return xg, xc, hprev, dys, whg, whc
+
+
+def _gru_remat_plain(args):
+    """The prologue's plain version on a backward's arguments (either
+    direction count) → (ruc, rh)."""
+    from tacotron_multispeaker_torch.ops import gru_scan as gs
+    xg, xc, hprev, _, whg, whc = args
+    if xg.dim() == 4:
+        return gs.bigru_bwd_remat_reference(xg, xc, hprev, whg, whc)
+    out = gs.bigru_bwd_remat_reference(xg[:, None], xc[:, None], hprev[:, None], whg[None],
+                                       whc[None])
+    return tuple(a[:, 0] for a in out)
+
+
+def _smem_probe(threads):
+    """Latencies behind the GRU backward scan's per-step bound, measured on
+    this card (``csrc/latency_probe.cu``, CUDA events over many dependent
+    operations): one barrier + shared-memory exchange of a block of
+    ``threads`` threads (us), one SM's shared-memory read bandwidth
+    (bytes/s, 16-byte loads from 1024 threads)."""
+    import ctypes
+    import torch
+    from tacotron_multispeaker_torch.ops import cuda_build
+    lib = cuda_build.library("latency_probe")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.probe_block_exchange.argtypes = [ci, ci, vp, vp]
+    lib.probe_smem_stream.argtypes = [ci, vp, vp]
+    stream = torch.cuda.current_stream().cuda_stream
+    sink = torch.zeros(4, device="cuda")
+
+    def timed(call, count):
+        call()
+        torch.cuda.synchronize()
+        return cuda_time_ms(lambda: cuda_build.check(call(), "smem probe"), reps=3) * 1e3 / count
+
+    iters, reps = 20000, 4096
+    ex_us = timed(lambda: lib.probe_block_exchange(threads, iters, sink.data_ptr(), stream),
+                  iters)
+    s = timed(lambda: lib.probe_smem_stream(reps, sink.data_ptr(), stream), 1) * 1e-6
+    return {"exchange_us": ex_us, "threads": threads, "sm_smem_bytes_s": reps * 32768 / s}
+
+
+def _gru_bwd_latency_bound_ms(T, B, F, dirs, esize, probe, n_sm):
+    """The per-step latency bound of csrc/bigru_scan_bwd.cu's scan: two
+    dependent phases a step, each a barrier plus a shared-memory round trip
+    (``probe_block_exchange`` at the block's 4F threads), plus the 3F^2
+    weight elements a step reads from shared memory over one SM's
+    shared-memory bandwidth; one block a (direction, row), blocks beyond
+    the SMs in later waves."""
+    import math
+    step_s = (2 * probe["exchange_us"] * 1e-6
+              + 3 * F * F * esize / probe["sm_smem_bytes_s"])
+    return T * math.ceil(dirs * B / n_sm) * step_s * 1e3
+
+
+def _gru_bwd_phase(dirs):
+    """Kernel 4 (dirs=2: ``bigru_scan_bwd``) or kernel 2 (dirs=1:
+    ``gru_scan_bwd``).  The prologue launch alone (``bwd_remat``) and the
+    whole backward (prologue, scan and one wgrad launch) against their plain
+    versions at B=32, T=192 and 1000, the CBHG width F=128 and tiny's F=32,
+    f32 and bf16; then, at B=32 F=128 bf16 (T=192 and 1000 for two
+    directions, T=1000 for one): the two launches' call ms, each launch's
+    device ms, the plain version, the byte/FLOP bound and the scan's
+    per-step latency bound (probed on this card).  Returns (the backward's
+    record, the prologue's record, the wgrad error)."""
+    import torch
+    from tacotron_multispeaker_torch.ops import gru_scan as gs
+    tag = "bigru_scan_bwd" if dirs == 2 else "gru_scan_bwd"
+    bwd, bwd_ref = ((gs.bigru_scan_bwd, gs.bigru_scan_bwd_reference) if dirs == 2
+                    else (gs.gru_scan_bwd, gs.gru_scan_bwd_reference))
+    B = 32
     names = ("dxg", "dxc", "dwhg", "dwhc", "dh0")
-    # relative to each output's peak.  f32: the same arithmetic in another
-    # sum order (the weight gradients sum T*B rows) -> 1e-4.  bf16: a sum
-    # landing on a rounding boundary flips one bf16 ulp of a matmul input
-    # (2^-8 relative), which the reverse recurrence carries -> 5e-2.
+    # the whole backward, relative to each output's peak.  f32: the same
+    # arithmetic in another sum order (the weight gradients sum T*B rows)
+    # -> 1e-4.  bf16: a sum landing on a rounding boundary flips one bf16
+    # ulp of a matmul input (2^-8 relative), which the reverse recurrence
+    # carries -> 5e-2.
     tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-
-    def case(T, dtype, seed):
-        xg, xc, whg, whc, h0 = _bigru_inputs(T, B, F, dtype, seed)
-        ys = gs.bigru_scan(xg, xc, whg, whc, h0)
-        hprev = torch.cat([h0[None].to(dtype), ys[:-1]]).contiguous()
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        dys = torch.randn(tuple(ys.shape), generator=g, device="cuda").to(dtype)
-        return xg, xc, hprev, dys, whg, whc
-
-    worst = 0.0
-    for T in (192, 1000):
-        for dtype in (torch.float32, torch.bfloat16):
-            args = case(T, dtype, seed=T + 1)
-            out = gs.bigru_scan_bwd(*args)
-            ref = gs.bigru_scan_bwd_reference(*args)
-            torch.cuda.synchronize()
-            errs = {n: _rel_err(a, b) for n, a, b in zip(names, out, ref)}
-            log(f"[bigru_scan_bwd] T={T} B={B} F={F} {str(dtype)[6:]}: max|kernel-plain|/"
-                f"max|plain| " + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
-                + f" (tol {tol[dtype]:.0e})")
-            if not all(e <= tol[dtype] for e in errs.values()):
-                raise AssertionError(f"bigru_scan_bwd disagrees with its plain version: {errs}")
-            worst = max(worst, *errs.values())
-    # timing at the post-net shape of the B=32 train batch (T = 1000 frames)
-    T, dtype = 1000, torch.bfloat16
-    args = case(T, dtype, seed=11)
-    ms = cuda_time_ms(lambda: gs._bwd_kernel(*args), reps=5)
-    plain_ms = cuda_time_ms(lambda: gs.bigru_scan_bwd_reference(*args), reps=1)
+    # the prologue alone, each of r, u, c and rh relative to its peak.
+    # f32: sum order only, no recurrence -> 1e-5.  bf16: both sides round
+    # the same inputs, but an order difference can flip the bf16 rounding of
+    # r*h_prev (one ulp, 2^-8 of rh), which the candidate's product rounds
+    # again -> 1e-2
+    rtol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    worst = {"bwd": 0.0, "remat": 0.0}
+    for F in (128, 32):
+        for T in (192, 1000):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = _gru_bwd_case(dirs, T, B, F, dtype, seed=T + F + dirs)
+                ruc, rh = gs.bwd_remat(*args[:3], *args[4:])
+                ruc_r, rh_r = _gru_remat_plain(args)
+                torch.cuda.synchronize()
+                errs = {p: _rel_err(ruc[..., k * F:(k + 1) * F], ruc_r[..., k * F:(k + 1) * F])
+                        for k, p in enumerate("ruc")}
+                errs["rh"] = _rel_err(rh, rh_r)
+                label = f"T={T} B={B} F={F} {str(dtype)[6:]}"
+                log(f"[{tag}_remat] {label}: max|kernel-plain|/max|plain| "
+                    + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                    + f" (tol {rtol[dtype]:.0e})")
+                if not all(e <= rtol[dtype] for e in errs.values()):
+                    raise AssertionError(f"{tag} prologue disagrees with its plain version: "
+                                         f"{errs}")
+                worst["remat"] = max(worst["remat"], *errs.values())
+                out = bwd(*args)
+                ref = bwd_ref(*args)
+                torch.cuda.synchronize()
+                errs = {n: _rel_err(a, b) for n, a, b in zip(names, out, ref)}
+                log(f"[{tag}] {label}: max|kernel-plain|/max|plain| "
+                    + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                    + f" (tol {tol[dtype]:.0e})")
+                if not all(e <= tol[dtype] for e in errs.values()):
+                    raise AssertionError(f"{tag} disagrees with its plain version: {errs}")
+                worst["bwd"] = max(worst["bwd"], *errs.values())
+    # timing at the train batch's shapes: the encoder's L=192 and the
+    # post-net's T=1000 frames, B=32, F=128, bf16
+    F, dtype = 128, torch.bfloat16
+    probe = _smem_probe(4 * F)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    stems = ("bigru_bwd_remat", "bigru_bwd_scan")
+    for T in ((192, 1000) if dirs == 2 else (1000,)):
+        args = _gru_bwd_case(dirs, T, B, F, dtype, seed=11 if dirs == 2 else 12)
+        run = lambda: gs._bwd_kernel(*args)
+        ms = cuda_time_ms(run, reps=5)
+        split, split_n = _device_split_ms(run, stems)
+        lat_ms = _gru_bwd_latency_bound_ms(T, B, F, dirs, 2, probe, n_sm)
+        log(f"[{tag}] T={T} B={B} F={F} bf16: kernel (prologue + scan) {ms:.3f} ms, device "
+            f"{json.dumps({k: round(v, 4) for k, v in split.items()})} ms "
+            f"({json.dumps(split_n)} launches); scan latency bound {lat_ms:.3f} ms "
+            f"({100 * lat_ms / split['bigru_bwd_scan']:.1f} % of the scan's time)")
+    log(f"[{tag}] probe: barrier + shared-memory exchange of {probe['threads']} threads "
+        f"{probe['exchange_us']:.4f} us, one SM's shared-memory read "
+        f"{probe['sm_smem_bytes_s'] / 1e9:.1f} GB/s; the scan's bound a step: 2 phases + "
+        f"{3 * F * F * 2 / 1e3:.1f} KB of weights")
+    plain_ms = cuda_time_ms(lambda: bwd_ref(*args), reps=1)
     xg, xc, hprev, dys, whg, whc = args
     dxg, dxc, rh, dh0 = gs._bwd_kernel(*args)
     bytes_ = _nbytes(xg, xc, hprev, dys, whg, whc, dxg, dxc, rh, dh0)
-    bound_ms, bound_by = _bound_ms(bytes_, bf16_flops=T * 2 * B * 12 * F * F)
-    problems = ([(hprev[:, d], dxg[:, d], False) for d in range(2)]
-                + [(rh[:, d], dxc[:, d], False) for d in range(2)])
-    w_err = _check_wgrad(problems, f"bigru backward, 4 products over {T * B} rows")
+    bound_ms, bound_by = _bound_ms(bytes_, bf16_flops=T * dirs * B * 12 * F * F)
+    D = range(dirs)
+    if dirs == 2:
+        problems = ([(hprev[:, d], dxg[:, d], False) for d in D]
+                    + [(rh[:, d], dxc[:, d], False) for d in D])
+    else:
+        problems = [(hprev, dxg, False), (rh, dxc, False)]
+    w_err = _check_wgrad(problems, f"{tag}, {2 * dirs} products over {T * B} rows")
     w_ms, w_plain = _time_wgrad(problems, dtype)
-    log(f"[bigru_scan_bwd] T={T} B={B} F={F} bf16: kernel {ms:.3f} ms, plain (with its "
-        f"weight gradients) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); its "
-        f"wgrad launch {w_ms:.3f} ms (plain {w_plain:.3f} ms, bound "
+    log(f"[{tag}] T={T} B={B} F={F} bf16: kernel {ms:.3f} ms, plain (with its weight "
+        f"gradients) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); its wgrad "
+        f"launch {w_ms:.3f} ms (plain {w_plain:.3f} ms, bound "
         f"{_wgrad_bound_ms(problems)[0]:.4f} ms)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "shape": f"T={T} B={B} F={F} bf16",
-            "error": "max |kernel - plain| / max |plain| over every output"}, w_err
+    rec = {"max_abs_err": worst["bwd"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_latency_ms": lat_ms,
+           "ms_remat": split["bigru_bwd_remat"], "ms_scan": split["bigru_bwd_scan"],
+           "shape": f"T={T} B={B} F={F} bf16",
+           "error": "max |kernel - plain| / max |plain| over every output; B=32 at T=192 and "
+                    "1000, F=128 and 32, f32 and bf16"}
+    if dirs == 1:
+        rec.update(wgrad_ms=w_ms, wgrad_plain_ms=w_plain)
+    # the prologue alone: time, plain time, bound (inputs read once, outputs
+    # written once; the products in bf16)
+    r_ms = cuda_time_ms(lambda: gs._remat_kernel(xg, xc, hprev, whg, whc), reps=10)
+    r_plain = cuda_time_ms(lambda: _gru_remat_plain(args), reps=3)
+    ruc, rh = gs._remat_kernel(xg, xc, hprev, whg, whc)
+    r_bound = _bound_ms(_nbytes(xg, xc, hprev, whg, whc, ruc, rh),
+                        bf16_flops=2 * T * dirs * B * 3 * F * F)
+    log(f"[{tag}_remat] T={T} B={B} F={F} bf16 ({T * dirs * B} rows): kernel {r_ms:.4f} ms, "
+        f"plain {r_plain:.3f} ms, bound {r_bound[0]:.4f} ms ({r_bound[1]})")
+    remat = {"max_abs_err": worst["remat"], "ms": r_ms, "plain_ms": r_plain,
+             "bound_ms": r_bound[0], "bound_by": r_bound[1],
+             "shape": f"T*D*B={T * dirs * B} rows, F={F} bf16",
+             "error": "max |kernel - plain| / max |plain| over r, u, c and r*h_prev; B=32 at "
+                      "T=192 and 1000, F=128 and 32, f32 and bf16"}
+    return rec, remat, w_err
 
 
 def _teacher_case(B, L, S, dtype, seed, scale=0.05, H=256, A=256, D=320, N=2):
@@ -1754,7 +1852,8 @@ def phase_train_bf16():
 
 
 TRAIN_LAUNCHES = {"bigru_scan": 2, "decoder_loop": 0, "bigru_scan_bwd": 2,
-                  "gru_scan": 0, "gru_scan_bwd": 0,
+                  "bigru_scan_bwd_remat": 2, "gru_scan": 0, "gru_scan_bwd": 0,
+                  "gru_scan_bwd_remat": 0,
                   "teacher_decoder_fwd": 1, "dkeys": 1, "teacher_decoder_bwd": 1,
                   "teacher_decoder_bwd_remat": 1,
                   "wgrad": 3, "conv_bank": 0, "attention_step": 0,
@@ -2418,10 +2517,14 @@ KERNEL_META = {
                      "tacotron_multispeaker_tpu/ops/decoder_loop.py:185", "serve"),
     "bigru_scan_bwd": ("tacotron_multispeaker_torch/csrc/bigru_scan_bwd.cu",
                        "tacotron_multispeaker_tpu/ops/gru_scan.py:485", "train"),
+    "bigru_scan_bwd_remat": ("tacotron_multispeaker_torch/csrc/bigru_scan_bwd.cu",
+                             "tacotron_multispeaker_tpu/ops/gru_scan.py:485", "train"),
     "gru_scan": ("tacotron_multispeaker_torch/csrc/bigru_scan.cu",
                  "tacotron_multispeaker_tpu/ops/gru_scan.py:87", "gru"),
     "gru_scan_bwd": ("tacotron_multispeaker_torch/csrc/bigru_scan_bwd.cu",
                      "tacotron_multispeaker_tpu/ops/gru_scan.py:225", "gru"),
+    "gru_scan_bwd_remat": ("tacotron_multispeaker_torch/csrc/bigru_scan_bwd.cu",
+                           "tacotron_multispeaker_tpu/ops/gru_scan.py:225", "gru"),
     "teacher_decoder_fwd": ("tacotron_multispeaker_torch/csrc/teacher_decoder_fwd.cu",
                             "tacotron_multispeaker_tpu/ops/teacher_decoder.py:190", "train"),
     "dkeys": ("tacotron_multispeaker_torch/csrc/dkeys.cu",
@@ -2449,8 +2552,10 @@ LIBRARY_NULL = {
     "bigru_scan": "torch.nn.GRU applies the reset gate after the matmul, another function",
     "decoder_loop": "no one PyTorch call decodes",
     "bigru_scan_bwd": "no one PyTorch call computes the legacy-GRU backward",
+    "bigru_scan_bwd_remat": "no one PyTorch call rebuilds legacy-GRU gates from saved states",
     "gru_scan": "torch.nn.GRU applies the reset gate after the matmul, another function",
     "gru_scan_bwd": "no one PyTorch call computes the legacy-GRU backward",
+    "gru_scan_bwd_remat": "no one PyTorch call rebuilds legacy-GRU gates from saved states",
     "teacher_decoder_fwd": "no one PyTorch call runs the attention decoder scan",
     "dkeys": "no one PyTorch call computes this tanh-derivative reduction",
     "teacher_decoder_bwd": "no one PyTorch call runs the decoder scan's backward",
@@ -2480,9 +2585,9 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     kern = {"bigru_scan": phase_bigru(), "decoder_loop": phase_decoder()}
-    kern["bigru_scan_bwd"], bigru_wgrad_err = phase_bigru_bwd()
+    kern["bigru_scan_bwd"], kern["bigru_scan_bwd_remat"], bigru_wgrad_err = phase_bigru_bwd()
     kern["gru_scan"] = phase_gru_scan()
-    kern["gru_scan_bwd"], gru_wgrad_err = phase_gru_scan_bwd()
+    kern["gru_scan_bwd"], kern["gru_scan_bwd_remat"], gru_wgrad_err = phase_gru_scan_bwd()
     kern.update(phase_teacher(max(bigru_wgrad_err, gru_wgrad_err)))
     kern.update(conv_bank=phase_conv_bank(), attention_step=phase_attention_step(),
                 attention_step_partial=phase_attention_partial(),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of one checkout of the port, for an A/B in turns.
 
-    python3 gl_ab.py DIR [build] [--mode gl|decoder|teacher|teacher_fwd]
+    python3 gl_ab.py DIR [build] [--mode gl|decoder|teacher|teacher_fwd|gru_bwd]
 
 Runs the port of the checkout in DIR (any commit of it) on inputs made by
 this checkout's ``chip_smoke.py`` and prints one ``AB`` line.  ``build``
@@ -33,6 +33,13 @@ builds every kernel library of DIR first.
   D=320 bf16 (the inputs of ``phase_teacher``): its call time (CUDA events;
   the cluster size where the checkout has one) and its launch's device time
   (profiler), then the bare train step as for ``teacher``.
+- ``gru_bwd``: the GRU scan backward (``ops.gru_scan._bwd_kernel``, B=32
+  F=128 bf16, the inputs of ``phase_bigru_bwd`` / ``phase_gru_scan_bwd``):
+  kernel 4 (two directions) at T=192 and T=1000 and kernel 2 (one
+  direction) at T=1000, each call's time (CUDA events) and the device time
+  of its launches (profiler: ``bigru`` is every launch, ``remat`` and
+  ``scan`` the two of the prologue design); then the bare train step as
+  for ``teacher``.
 
 To compare two versions on one card, run it in turns in one command:
 parent, change, change, parent.  Needs a CUDA device.
@@ -159,13 +166,28 @@ def _teacher_fwd(c, torch):
     return " | ".join(parts)
 
 
+def _gru_bwd(c, torch):
+    from tacotron_multispeaker_torch.ops import gru_scan as gs
+    parts = []
+    for dirs, T in ((2, 192), (2, 1000), (1, 1000)):
+        args = c._gru_bwd_case(dirs, T, 32, 128, torch.bfloat16, seed=11 if dirs == 2 else 12)
+        run = lambda: gs._bwd_kernel(*args)  # noqa: E731
+        ms = c.cuda_time_ms(run, reps=5)
+        split, _ = c._device_split_ms(run, ("bigru", "bigru_bwd_remat", "bigru_bwd_scan"))
+        parts.append(f"kernel {4 if dirs == 2 else 2} T={T} B=32 {ms:.3f} ms "
+                     + str({k: round(v, 4) for k, v in split.items()}))
+    del args
+    parts.append(_train_step(c, torch))
+    return " | ".join(parts)
+
+
 def main() -> int:
     import torch
     import chip_smoke as c          # this checkout's; it imports the port lazily
     ap = argparse.ArgumentParser()
     ap.add_argument("dir")
     ap.add_argument("build", nargs="?", choices=["build"])
-    ap.add_argument("--mode", choices=["gl", "decoder", "teacher", "teacher_fwd"],
+    ap.add_argument("--mode", choices=["gl", "decoder", "teacher", "teacher_fwd", "gru_bwd"],
                     default="gl")
     opts = ap.parse_args()
     root = os.path.abspath(opts.dir)
@@ -180,7 +202,7 @@ def main() -> int:
         from tacotron_multispeaker_torch.ops import KERNELS, cuda_build
         cuda_build.build_all(KERNELS)
     line = {"gl": _gl, "decoder": _decoder, "teacher": _teacher,
-            "teacher_fwd": _teacher_fwd}[opts.mode](c, torch)
+            "teacher_fwd": _teacher_fwd, "gru_bwd": _gru_bwd}[opts.mode](c, torch)
     print(f"AB {opts.mode} {opts.dir}: {line}", flush=True)
     return 0
 

@@ -1,6 +1,6 @@
-// Latency probes behind the decoder kernel's per-step bound (not a kernel of
-// the model): chip_smoke.py phase_decoder times each launch with CUDA events
-// and divides by its count of dependent operations.
+// Latency probes behind the per-step bounds of the scans (not a kernel of
+// the model): chip_smoke.py times each launch with CUDA events and divides
+// by its count of dependent operations.
 //
 // - probe_l2_chase: one thread follows a chain of indices through a buffer
 //   that sits in L2 (loads bypass L1: ld.global.cg), one dependent load a
@@ -12,6 +12,13 @@
 // - probe_l2_stream: each of ``blocks`` CTAs of 1024 threads reads an
 //   L2-resident buffer with 16-byte loads, eight in flight a thread -> one
 //   SM's L2 bandwidth (1 block) and the card's (one block an SM).
+// - probe_block_exchange: one block of ``threads`` threads; an iteration
+//   stores one float to shared memory, meets at __syncthreads and reads a
+//   neighbour's -> one dependent phase of a block that runs a step on its
+//   own SM (the GRU backward's scan): a barrier plus a shared-memory round
+//   trip.
+// - probe_smem_stream: one block of 1024 threads reads a 32 KB shared
+//   buffer with 16-byte loads -> one SM's shared-memory bandwidth.
 
 #include "cluster_common.cuh"
 
@@ -57,6 +64,35 @@ __global__ void __launch_bounds__(STREAM_THREADS) l2_stream_kernel(const uint4* 
   if (acc == 0x12345678u) *sink = float(acc);   // keeps the loads
 }
 
+__global__ void __launch_bounds__(1024) block_exchange_kernel(int iters, float* sink) {
+  __shared__ float slot[2][1024];   // two, so that one barrier an iteration suffices
+  const int n = blockDim.x, i = threadIdx.x;
+  float v = float(i);
+  for (int it = 0; it < iters; ++it) {
+    slot[it & 1][i] = v;
+    __syncthreads();
+    v = slot[it & 1][(i + 1) % n] + 1.f;
+  }
+  if (i == 0) *sink = v;
+}
+
+constexpr int SMEM_STREAM_SLOTS = 2048;   // 16-byte slots: 32 KB
+
+__global__ void __launch_bounds__(STREAM_THREADS) smem_stream_kernel(int reps, float* sink) {
+  __shared__ uint4 buf[SMEM_STREAM_SLOTS];
+  for (int i = threadIdx.x; i < SMEM_STREAM_SLOTS; i += STREAM_THREADS)
+    buf[i] = make_uint4(i, i + 1, i + 2, i + 3);
+  __syncthreads();
+  uint32_t acc = 0;
+  for (int r = 0; r < reps; ++r) {
+    // two 16-byte loads a thread: the whole buffer once a rep, conflict-free
+    const int i = (threadIdx.x + r * 64) & (SMEM_STREAM_SLOTS - 1);
+    const uint4 a = buf[i], b = buf[i ^ STREAM_THREADS];
+    acc ^= a.x ^ a.y ^ a.z ^ a.w ^ b.x ^ b.y ^ b.z ^ b.w;
+  }
+  if (acc == 0x12345678u) *sink = float(acc);   // keeps the loads
+}
+
 }  // namespace
 
 extern "C" {
@@ -94,6 +130,20 @@ int probe_l2_stream(const void* buf, size_t n16, int reps, int blocks, void* sin
                     void* stream) {
   l2_stream_kernel<<<blocks, STREAM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(buf), n16, reps, static_cast<float*>(sink));
+  return int(cudaGetLastError());
+}
+
+// One barrier + shared-memory exchange of a block of ``threads`` threads, ``iters`` times.
+int probe_block_exchange(int threads, int iters, void* sink, void* stream) {
+  block_exchange_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      iters, static_cast<float*>(sink));
+  return int(cudaGetLastError());
+}
+
+// One block reading 32 KB of shared memory ``reps`` times (bytes: reps * 32768).
+int probe_smem_stream(int reps, void* sink, void* stream) {
+  smem_stream_kernel<<<1, STREAM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      reps, static_cast<float*>(sink));
   return int(cudaGetLastError());
 }
 

@@ -7,8 +7,9 @@ integers count the kernel launches.
 
 * :mod:`.gru_scan` — ``bigru_scan``, the fused two-direction GRU scan
   (replaces ``tacotron_multispeaker_tpu/ops/gru_scan.py bigru_scan_pallas``),
-  its backward ``bigru_scan_bwd`` (``_bigru_scan_bwd_pallas``) and the
-  autograd Function ``BiGRUScan`` joining them.
+  its backward ``bigru_scan_bwd`` (``_bigru_scan_bwd_pallas``: a carry-free
+  prologue, ``bwd_remat``, then the gradient-only scan) and the autograd
+  Function ``BiGRUScan`` joining them.
 * :mod:`.decoder_loop` — ``decoder_loop``, the whole autoregressive decode
   (replaces ``tacotron_multispeaker_tpu/ops/decoder_loop.py
   decoder_loop_pallas``).

@@ -3,8 +3,11 @@
 Port of ``tacotron_multispeaker_tpu/ops/gru_scan.py``:
 
 * two directions: ``bigru_scan_pallas`` (the forward, ``csrc/bigru_scan.cu``)
-  and ``_bigru_scan_bwd_pallas`` (the backward, ``csrc/bigru_scan_bwd.cu``
-  with the weight gradients reduced by ``csrc/wgrad.cu``), joined by
+  and ``_bigru_scan_bwd_pallas`` (the backward, ``csrc/bigru_scan_bwd.cu``:
+  a carry-free prologue over all T·B rows, :func:`bwd_remat`, plain
+  :func:`bigru_bwd_remat_reference`, then the gradient-only reverse scan,
+  plain :func:`bigru_bwd_scan_reference`; the weight gradients reduced by
+  ``csrc/wgrad.cu``), joined by
   :class:`BiGRUScan`, the ``torch.autograd.Function`` that mirrors the JAX
   package's ``bigru_scan`` custom VJP: the forward saves ``ys`` in the
   compute dtype and the backward rebuilds ``hprev`` from it;
@@ -35,10 +38,12 @@ import torch
 from . import cuda_build, wgrad
 
 # launches of the CUDA kernels (the plain versions do not count)
-launches = 0          # two-direction forward, csrc/bigru_scan.cu
-bwd_launches = 0      # two-direction backward, csrc/bigru_scan_bwd.cu
-gru_launches = 0      # one-direction forward, csrc/bigru_scan.cu
-gru_bwd_launches = 0  # one-direction backward, csrc/bigru_scan_bwd.cu
+launches = 0                # two-direction forward, csrc/bigru_scan.cu
+bwd_launches = 0            # two-direction backward's scan, csrc/bigru_scan_bwd.cu
+bwd_remat_launches = 0      # two-direction backward's prologue before it
+gru_launches = 0            # one-direction forward, csrc/bigru_scan.cu
+gru_bwd_launches = 0        # one-direction backward's scan, csrc/bigru_scan_bwd.cu
+gru_bwd_remat_launches = 0  # one-direction backward's prologue before it
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
@@ -110,6 +115,49 @@ def gru_scan_bwd_reference(xg, xc, hprev, dys, whg, whc):
     out = bigru_scan_bwd_reference(xg[:, None], xc[:, None], hprev[:, None], dys[:, None],
                                    whg[None], whc[None])
     return tuple(a[:, 0] if a.dim() == 4 else a[0] for a in out)
+
+
+def bigru_bwd_remat_reference(xg, xc, hprev, whg, whc):
+    """Plain carry-free prologue of the backward, batched over all T·B rows
+    (the gates the Pallas ``_bi_bwd_kernel`` rematerialises inside its
+    scan; none of them depends on the reverse-time carry): streams [T, D, B,
+    .] and weights [D, F, .] with D = 2 or 1 directions → (ruc [T, D, B, 3F]
+    f32 = [r | u | c], rh [T, D, B, F] = r·hprev in the compute dtype)."""
+    F = xc.shape[-1]
+    cdt = whg.dtype
+    hp = hprev.float()
+    g = torch.sigmoid(xg.float() + hp.to(cdt).float() @ whg.float())
+    rh = g[..., :F] * hp
+    c = torch.tanh(xc.float() + rh.to(cdt).float() @ whc.float())
+    return torch.cat([g, c], dim=-1), rh.to(cdt)
+
+
+def bigru_bwd_scan_reference(ruc, hprev, dys, whg, whc):
+    """Plain gradient-only reverse scan from the prologue's ``ruc`` (the
+    rest of :func:`bigru_scan_bwd_reference`'s step, in its order, with
+    ``round(dg) @ whg^T`` split into its dgu and dgr halves): streams [T, D,
+    B, .], weights [D, F, .] → f32 (dxg, dxc, dh0)."""
+    F = hprev.shape[-1]
+    rnd = lambda x: x.to(whg.dtype).float()
+    wcT, wgT = whc.float().transpose(1, 2), whg.float().transpose(1, 2)
+    dh = torch.zeros(hprev.shape[1:], dtype=torch.float32, device=hprev.device)
+    dxg, dxc = [], []
+    for t in range(hprev.shape[0] - 1, -1, -1):
+        r, u, c = ruc[t, ..., :F], ruc[t, ..., F:2 * F], ruc[t, ..., 2 * F:]
+        hp = hprev[t].float()
+        dht = dh + dys[t].float()
+        dc = dht * (1.0 - u)
+        du = dht * (hp - c)
+        dac = dc * (1.0 - c * c)
+        dgu = du * u * (1.0 - u)
+        drh = torch.bmm(rnd(dac), wcT)
+        s_u = torch.bmm(rnd(dgu), wgT[:, F:])
+        dr = drh * hp
+        dgr = dr * r * (1.0 - r)
+        dh = dht * u + drh * r + s_u + torch.bmm(rnd(dgr), wgT[:, :F])
+        dxg.append(torch.cat([dgr, dgu], dim=-1))
+        dxc.append(dac)
+    return torch.stack(dxg[::-1]), torch.stack(dxc[::-1]), dh
 
 
 def _check(xg, xc, whg, whc, h0=None, *, dirs=2, **streams):
@@ -218,7 +266,8 @@ def gru_scan_bwd(xg, xc, hprev, dys, whg, whc):
     """Backward of :func:`gru_scan` (``_gru_scan_bwd_pallas``; see
     :func:`gru_scan_bwd_reference`): [T, B, .] streams and [F, .] weights in
     the compute dtype → f32 (dxg, dxc, dwhg, dwhc, dh0).  On the card: one
-    kernel launch, then both weight gradients in one ``wgrad`` launch."""
+    prologue and one scan launch, then both weight gradients in one
+    ``wgrad`` launch."""
     _check(xg, xc, whg, whc, dirs=1, hprev=hprev, dys=dys)
     if xg.device.type == "cpu":
         return gru_scan_bwd_reference(xg, xc, hprev, dys, whg, whc)
@@ -228,45 +277,126 @@ def gru_scan_bwd(xg, xc, hprev, dys, whg, whc):
     return dxg, dxc, dwhg, dwhc, dh0
 
 
-def _bwd_kernel(xg, xc, hprev, dys, whg, whc):
-    """One launch of csrc/bigru_scan_bwd.cu, two directions or one, on
-    checked arguments → (dxg, dxc, rh, dh0): the per-step outputs and the
-    r*h_prev stream the weight gradients are reduced from."""
-    global bwd_launches, gru_bwd_launches
+# shared-memory bytes of the prologue's bf16 block (csrc/bigru_scan_bwd.cu):
+# 1024 of alignment, an 8 KB A k-block per 64 columns of F, a ring of three
+# 16 KB weight k-blocks, 64 x 132 staged f32 sums, six mbarriers; its f32
+# block holds mma_common.cuh's TileF32 (64 x 36 + 32 x 68 + 64 x 68 floats)
+_REMAT_F32_SMEM = (64 * 36 + 32 * 68 + 64 * 68) * 4
+_SCAN_MAX_THREADS = 768   # 4F threads a scan block
+
+
+def bwd_smem_bytes(F: int, esize: int) -> tuple[int, int]:
+    """Shared memory of a block of the backward's two launches (prologue,
+    scan) at width F with ``esize``-byte weights, as the kernels count it
+    (``bigru_scan_bwd_remat_smem_bytes`` / ``bigru_scan_bwd_smem_bytes``):
+    the scan's padded weight rows, six vectors of F floats and three step
+    buffers (r | u | c, hprev, dys)."""
+    up16 = lambda n: -(-n // 16) * 16
+    remat = (1024 + -(-F // 64) * 8192 + 3 * 16384 + 64 * 132 * 4 + 2 * 3 * 8
+             if esize == 2 else _REMAT_F32_SMEM)
+    pad = 16 // esize
+    step = 3 * F + up16(2 * F * esize) // 4
+    scan = up16(F * (3 * F + 2 * pad) * esize) + (6 * F + 3 * step) * 4
+    return remat, scan
+
+
+def bwd_check_limits(*, T: int, B: int, F: int, esize: int, name: str = "bigru_scan_bwd"):
+    """Raise ValueError where the backward's launches do not take these
+    dims (the limits of csrc/bigru_scan_bwd.cu's note)."""
+    if F % 8:
+        raise ValueError(f"{name} kernel: F={F} is not a multiple of 8 (16-byte rows)")
+    if 4 * F > _SCAN_MAX_THREADS:
+        raise ValueError(f"{name} kernel: the scan's 4F = {4 * F} threads > "
+                         f"{_SCAN_MAX_THREADS} (a block takes at most 1024 threads)")
+    if B > 65535:
+        raise ValueError(f"{name} kernel: B = {B} > 65535 rows (one scan block each)")
+    if T * B >= 2 ** 31 - 64:
+        raise ValueError(f"{name} kernel: T*B = {T * B} rows a direction (>= 2^31 - 64)")
+    for what, smem in zip(("prologue", "scan"), bwd_smem_bytes(F, esize)):
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"{name} kernel: F={F} needs {smem} bytes of shared memory "
+                             f"in its {what} (> {_SMEM_LIMIT})")
+
+
+def bwd_remat(xg, xc, hprev, whg, whc):
+    """The backward's carry-free prologue alone, two directions ([T, 2, B,
+    .] streams) or one ([T, B, .]): the arguments of :func:`bigru_scan_bwd`
+    but dys → (ruc f32 [.., 3F] = [r | u | c], rh = r·hprev in the compute
+    dtype) (see :func:`bigru_bwd_remat_reference`)."""
     bi = xg.dim() == 4
-    name = "bigru_scan_bwd" if bi else "gru_scan_bwd"
+    _check(xg, xc, whg, whc, dirs=2 if bi else 1, hprev=hprev)
+    if xg.device.type == "cpu":
+        if bi:
+            return bigru_bwd_remat_reference(xg, xc, hprev, whg, whc)
+        ruc, rh = bigru_bwd_remat_reference(xg[:, None], xc[:, None], hprev[:, None],
+                                            whg[None], whc[None])
+        return ruc[:, 0], rh[:, 0]
+    _kernel_checks(xg, xc, hprev, whg, whc)
+    return _remat_kernel(xg, xc, hprev, whg, whc)
+
+
+def _kernel_checks(xg, xc, hprev, whg, whc, dys=None):
+    """Device, contiguity and the kernels' limits; returns T, B, F."""
+    name = "bigru_scan_bwd" if xg.dim() == 4 else "gru_scan_bwd"
     if xg.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {xg.device}")
     for arg, a in (("xg", xg), ("xc", xc), ("hprev", hprev), ("dys", dys),
                    ("whg", whg), ("whc", whc)):
-        if not a.is_contiguous():
+        if a is not None and not a.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
     T, B, F = xg.shape[0], xg.shape[-2], xc.shape[-1]
-    lib = _bwd_lib()
-    is_bf16 = int(xg.dtype == torch.bfloat16)
-    if 2 * F > 1024:
-        raise ValueError(f"{name} kernel: 2F = {2 * F} > 1024 threads")
-    if B > 65535:
-        raise ValueError(f"{name} kernel: B = {B} > 65535 rows (one block each)")
-    smem = lib.bigru_scan_bwd_smem_bytes(F, is_bf16)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name} kernel: F={F} needs {smem} bytes of shared "
-                         f"memory (> {_SMEM_LIMIT})")
+    bwd_check_limits(T=T, B=B, F=F, esize=xg.element_size(), name=name)
+    return T, B, F
+
+
+def _launch_args(xg):
+    T, B, F = xg.shape[0], xg.shape[-2], xg.shape[-1] // 2
+    return T, 2 if xg.dim() == 4 else 1, B, F, int(xg.dtype == torch.bfloat16)
+
+
+def _remat_kernel(xg, xc, hprev, whg, whc):
+    """The prologue launch of csrc/bigru_scan_bwd.cu (arguments checked) →
+    (ruc, rh)."""
+    global bwd_remat_launches, gru_bwd_remat_launches
+    F = xc.shape[-1]
+    ruc = torch.empty((*xc.shape[:-1], 3 * F), dtype=torch.float32, device=xg.device)
+    rh = torch.empty(xc.shape, dtype=xg.dtype, device=xg.device)
+    if xg.shape[0] == 0 or xg.shape[-2] == 0:
+        return ruc, rh
+    with torch.cuda.device(xg.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib().gru_scan_bwd_remat_launch(
+            xg.data_ptr(), xc.data_ptr(), hprev.data_ptr(), whg.data_ptr(), whc.data_ptr(),
+            ruc.data_ptr(), rh.data_ptr(), *_launch_args(xg), stream)
+    bi = xg.dim() == 4
+    cuda_build.check(err, f"{'bigru' if bi else 'gru'}_scan_bwd prologue launch")
+    if bi:
+        bwd_remat_launches += 1
+    else:
+        gru_bwd_remat_launches += 1
+    return ruc, rh
+
+
+def _bwd_kernel(xg, xc, hprev, dys, whg, whc):
+    """The two launches of csrc/bigru_scan_bwd.cu, two directions or one,
+    prologue then scan (shapes checked) → (dxg, dxc, rh, dh0): the per-step
+    outputs and the r*h_prev stream the weight gradients are reduced from."""
+    global bwd_launches, gru_bwd_launches
+    T, B, F = _kernel_checks(xg, xc, hprev, whg, whc, dys)
     f32 = dict(dtype=torch.float32, device=xg.device)
     dxg = torch.empty(xg.shape, **f32)
     dxc = torch.empty(xc.shape, **f32)
-    rh = torch.empty(xc.shape, dtype=xg.dtype, device=xg.device)
     dh0 = torch.zeros(hprev.shape[1:], **f32)   # stays zero when T == 0
+    ruc, rh = _remat_kernel(xg, xc, hprev, whg, whc)
     if T == 0 or B == 0:
         return dxg, dxc, rh, dh0
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gru_scan_bwd_launch(xg.data_ptr(), xc.data_ptr(), hprev.data_ptr(),
-                                      dys.data_ptr(), whg.data_ptr(), whc.data_ptr(),
-                                      dxg.data_ptr(), dxc.data_ptr(), rh.data_ptr(),
-                                      dh0.data_ptr(), T, 2 if bi else 1, B, F, is_bf16,
-                                      stream)
-    cuda_build.check(err, f"{name} kernel launch")
+        err = _bwd_lib().gru_scan_bwd_launch(
+            ruc.data_ptr(), hprev.data_ptr(), dys.data_ptr(), whg.data_ptr(), whc.data_ptr(),
+            dxg.data_ptr(), dxc.data_ptr(), dh0.data_ptr(), *_launch_args(xg), stream)
+    bi = xg.dim() == 4
+    cuda_build.check(err, f"{'bigru' if bi else 'gru'}_scan_bwd kernel launch")
     if bi:
         bwd_launches += 1
     else:
@@ -322,10 +452,13 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.library("bigru_scan_bwd")
     if not getattr(lib, "_typed", False):
         p = ctypes.c_void_p
-        lib.gru_scan_bwd_launch.argtypes = [p] * 10 + [ctypes.c_int] * 5 + [p]
+        lib.gru_scan_bwd_remat_launch.argtypes = [p] * 7 + [ctypes.c_int] * 5 + [p]
+        lib.gru_scan_bwd_remat_launch.restype = ctypes.c_int
+        lib.gru_scan_bwd_launch.argtypes = [p] * 8 + [ctypes.c_int] * 5 + [p]
         lib.gru_scan_bwd_launch.restype = ctypes.c_int
-        lib.bigru_scan_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.bigru_scan_bwd_smem_bytes.restype = ctypes.c_size_t
+        for fn in (lib.bigru_scan_bwd_smem_bytes, lib.bigru_scan_bwd_remat_smem_bytes):
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            fn.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 

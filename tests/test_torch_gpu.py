@@ -144,6 +144,21 @@ def teacher_args(arrays, device="cpu", dtype=torch.float32):
     return (png.to(dtype), pnc.to(dtype), h0a, h0d, keys.to(dtype), memory.to(dtype), mask)
 
 
+def split_bwd_reference(xg, xc, hprev, dys, whg, whc):
+    """The GRU scan backward's plain parts composed, as the card runs its
+    launches: the prologue (``bigru_bwd_remat_reference``), the gradient
+    scan (``bigru_bwd_scan_reference``), then the weight gradients from
+    their factors (``wgrad_reference``).  Streams [T, D, B, .], weights [D,
+    F, .] → f32 (dxg, dxc, dwhg, dwhc, dh0) as ``bigru_scan_bwd_reference``."""
+    ruc, rh = tgs.bigru_bwd_remat_reference(xg, xc, hprev, whg, whc)
+    dxg, dxc, dh0 = tgs.bigru_bwd_scan_reference(ruc, hprev, dys, whg, whc)
+    D = xg.shape[1]
+    grads = twg.wgrad_reference([(hprev[:, d], dxg[:, d], False) for d in range(D)]
+                                + [(rh[:, d], dxc[:, d], False) for d in range(D)], whg.dtype)
+    return (dxg, dxc, torch.stack([c for c, _ in grads[:D]]),
+            torch.stack([c for c, _ in grads[D:]]), dh0)
+
+
 def torch_weights(w, device="cpu"):
     conv = lambda v: (tuple(torch.from_numpy(t).to(device) for t in v)
                       if isinstance(v, tuple) else torch.from_numpy(v).to(device))
@@ -277,11 +292,12 @@ def test_bigru_backward_kernel_matches_plain_on_card(cuda, dtype, tol):
     ys = tgs.bigru_scan(xg, xc, whg, whc, args[4])
     hprev = torch.cat([args[4][None].to(dtype), ys[:-1]]).contiguous()
     dys = torch.from_numpy(rs.randn(*ys.shape).astype(np.float32)).to(cuda).to(dtype)
-    before = (tgs.bwd_launches, twg.launches)
+    before = (tgs.bwd_remat_launches, tgs.bwd_launches, twg.launches)
     out = tgs.bigru_scan_bwd(xg, xc, hprev, dys, whg, whc)
     ref = tgs.bigru_scan_bwd_reference(xg, xc, hprev, dys, whg, whc)
     torch.cuda.synchronize()
-    assert (tgs.bwd_launches - before[0], twg.launches - before[1]) == (1, 1)
+    assert (tgs.bwd_remat_launches - before[0], tgs.bwd_launches - before[1],
+            twg.launches - before[2]) == (1, 1, 1)
     for name, a, b in zip(("dxg", "dxc", "dwhg", "dwhc", "dh0"), out, ref):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
         assert _err(a, b) <= tol, (name, _err(a, b))
@@ -297,7 +313,8 @@ def test_gru_scan_kernels_match_plain_on_card(cuda, dtype, tol):
     xg, xc, whg, whc, h0 = (torch.from_numpy(a).to(cuda)
                             for a in gru_inputs(rs, T=33, B=5, F=96, scale=0.08))
     xg, xc, whg, whc = (a.to(dtype) for a in (xg, xc, whg, whc))
-    before = (tgs.gru_launches, tgs.gru_bwd_launches, twg.launches, tgs.launches)
+    before = (tgs.gru_launches, tgs.gru_bwd_launches, twg.launches, tgs.launches,
+              tgs.gru_bwd_remat_launches)
     ys = tgs.gru_scan(xg, xc, whg, whc, h0)
     ref = tgs.gru_scan_reference(xg, xc, whg, whc, h0)
     hprev = torch.cat([h0[None].to(dtype), ys[:-1]]).contiguous()
@@ -306,13 +323,89 @@ def test_gru_scan_kernels_match_plain_on_card(cuda, dtype, tol):
     out_r = tgs.gru_scan_bwd_reference(xg, xc, hprev, dys, whg, whc)
     torch.cuda.synchronize()
     assert (tgs.gru_launches - before[0], tgs.gru_bwd_launches - before[1],
-            twg.launches - before[2], tgs.launches - before[3]) == (1, 1, 1, 0)
+            twg.launches - before[2], tgs.launches - before[3],
+            tgs.gru_bwd_remat_launches - before[4]) == (1, 1, 1, 0, 1)
     assert ys.dtype == dtype and ys.shape == (33, 5, 96)
     assert (ys.float() - ref.float()).abs().max().item() <= (1e-5 if dtype == torch.float32
                                                              else tol)
     for name, a, b in zip(("dxg", "dxc", "dwhg", "dwhc", "dh0"), out, out_r):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
         assert _err(a, b) <= tol, (name, _err(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dirs", [2, 1])
+@pytest.mark.parametrize("T,B,F", [(33, 5, 128), (192, 32, 128), (33, 5, 32)])
+@pytest.mark.parametrize("dtype,rtol,btol", [(torch.float32, 1e-5, 1e-4),
+                                             (torch.bfloat16, 1e-2, 5e-2)])
+def test_gru_bwd_prologue_and_both_launches_on_card(cuda, dirs, T, B, F, dtype, rtol, btol):
+    # the backward's prologue launch alone, then both launches through
+    # bigru_scan_bwd / gru_scan_bwd, against their plain versions.  Shapes:
+    # 165 rows a direction (two full 64-row tiles and a partial one), the
+    # encoder's T=192 B=32 (96 full tiles), tiny's F=32 (a partial
+    # 128-column chunk).  Prologue, each of r, u, c and rh relative to its
+    # peak: f32 sum order only -> 1e-5; bf16 both sides round the same
+    # inputs, but an order difference can flip the bf16 rounding of r*h_prev
+    # (one ulp, 2^-8 of rh) which the candidate's product rounds again ->
+    # 1e-2.  The whole backward relative to max(peak, 1): f32 1e-4; bf16
+    # flipped roundings carried back through the recurrence -> 5e-2
+    rs = np.random.RandomState(T + F + dirs)
+    args = [torch.from_numpy(a).to(cuda) for a in bigru_inputs(rs, T=T, B=B, F=F, scale=0.08)]
+    if dirs == 1:
+        args = [(a[:, 0] if a.dim() == 4 else a[0]).contiguous() for a in args]
+    xg, xc, whg, whc = (a.to(dtype) for a in args[:4])
+    h0 = args[4]
+    ys = (tgs.bigru_scan if dirs == 2 else tgs.gru_scan)(xg, xc, whg, whc, h0)
+    hprev = torch.cat([h0[None].to(dtype), ys[:-1]]).contiguous()
+    dys = torch.from_numpy(rs.randn(*ys.shape).astype(np.float32)).to(cuda).to(dtype)
+    counters = (("bwd_remat_launches", "bwd_launches") if dirs == 2
+                else ("gru_bwd_remat_launches", "gru_bwd_launches"))
+    count = lambda: tuple(getattr(tgs, c) for c in counters)
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp(min=1e-6)).item()
+    before = count()
+    ruc, rh = tgs.bwd_remat(xg, xc, hprev, whg, whc)
+    plain = (tgs.bigru_bwd_remat_reference(xg, xc, hprev, whg, whc) if dirs == 2 else
+             [a[:, 0] for a in tgs.bigru_bwd_remat_reference(
+                 xg[:, None], xc[:, None], hprev[:, None], whg[None], whc[None])])
+    torch.cuda.synchronize()
+    assert tuple(n - b for n, b in zip(count(), before)) == (1, 0)
+    assert ruc.dtype == torch.float32 and rh.dtype == dtype and ruc.shape == plain[0].shape
+    for k, part in enumerate("ruc"):
+        sl = slice(k * F, (k + 1) * F)
+        assert rel(ruc[..., sl], plain[0][..., sl]) <= rtol, (part, rel(ruc[..., sl],
+                                                                        plain[0][..., sl]))
+    assert rel(rh, plain[1]) <= rtol, ("rh", rel(rh, plain[1]))
+    bwd, bwd_ref = ((tgs.bigru_scan_bwd, tgs.bigru_scan_bwd_reference) if dirs == 2
+                    else (tgs.gru_scan_bwd, tgs.gru_scan_bwd_reference))
+    out = bwd(xg, xc, hprev, dys, whg, whc)
+    ref = bwd_ref(xg, xc, hprev, dys, whg, whc)
+    torch.cuda.synchronize()
+    assert tuple(n - b for n, b in zip(count(), before)) == (2, 1)
+    for name, a, b in zip(("dxg", "dxc", "dwhg", "dwhc", "dh0"), out, ref):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert _err(a, b) <= btol, (name, _err(a, b))
+
+
+@pytest.mark.gpu
+def test_gru_bwd_limits_match_the_kernels_on_card(cuda):
+    # the wrapper's shared-memory counts are the two launches' own, and a
+    # width outside the limits raises before any launch
+    lib = tgs._bwd_lib()
+    for F in (32, 96, 128, 136, 192):
+        for is_bf16, esize in ((0, 4), (1, 2)):
+            assert tgs.bwd_smem_bytes(F, esize) == (
+                lib.bigru_scan_bwd_remat_smem_bytes(F, is_bf16),
+                lib.bigru_scan_bwd_smem_bytes(F, is_bf16)), (F, esize)
+    rs = np.random.RandomState(14)
+    args = [torch.from_numpy(a).to(cuda) for a in bigru_inputs(rs, T=3, B=2, F=100)]
+    before = (tgs.bwd_remat_launches, tgs.bwd_launches)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tgs.bigru_scan_bwd(args[0], args[1], args[1], args[1], args[2], args[3])
+    args = [torch.from_numpy(a).to(cuda) for a in bigru_inputs(rs, T=3, B=2, F=144)]
+    with pytest.raises(ValueError, match="shared memory"):
+        tgs.bwd_remat(args[0], args[1], args[1], args[2], args[3])   # f32 scan: F > 136
+    assert (tgs.bwd_remat_launches, tgs.bwd_launches) == before
 
 
 @pytest.mark.gpu

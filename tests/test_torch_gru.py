@@ -22,10 +22,20 @@ pytest.importorskip("flax")
 from tacotron_multispeaker_tpu.models import modules as jmod  # noqa: E402
 from tacotron_multispeaker_tpu.ops import gru_scan as jgs  # noqa: E402
 from tacotron_multispeaker_torch import convert  # noqa: E402
+from tacotron_multispeaker_torch.device import warm_cpu_math  # noqa: E402
 from tacotron_multispeaker_torch.models import modules as tmod  # noqa: E402
 from tacotron_multispeaker_torch.ops import gru_scan as tgs  # noqa: E402
 from tacotron_multispeaker_torch.ops import wgrad as twg  # noqa: E402
-from test_torch_gpu import gru_inputs  # noqa: E402
+from test_torch_gpu import gru_inputs, split_bwd_reference  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_math_ready():
+    # the tests call the port's ops on CPU tensors directly, not through an
+    # entry point, so they make PyTorch's float32 math ready as the entry
+    # points do (device.warm_cpu_math: a thread's first tanh of a process can
+    # err by ~1e-4)
+    warm_cpu_math()
 
 
 def _t(arrays):
@@ -77,6 +87,37 @@ def test_gru_scan_bwd_plain_matches_pallas_interpret(T, B, F):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
         np.testing.assert_allclose(a.numpy(), b, atol=1e-4 * max(np.abs(b).max(), 1.0),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("T,B,F", [(16, 2, 128), (37, 3, 32)])
+def test_gru_scan_split_backward_plain_matches_pallas_interpret(T, B, F):
+    # one direction through the card's two launches as plain parts (the
+    # prologue over all T*B rows, the gradient-only scan, the weight
+    # gradients from their factors) against the Pallas kernel, at the CBHG
+    # width F=128 and tiny's F=32: 1e-4 of max(peak, 1) as the whole plain
+    # backward's test above; the one-direction prologue wrapper on CPU
+    # tensors is its plain version
+    rs = np.random.RandomState(T + 2)
+    xg, xc, whg, whc, h0 = gru_inputs(rs, T, B, F)
+    ys = np.asarray(jgs.gru_scan_reference(*map(jnp.asarray, (xg, xc, whg, whc, h0))))
+    hprev = np.concatenate([h0[None], ys[:-1]]).astype(np.float32)
+    dys = rs.randn(T, B, F).astype(np.float32)
+    args = (xg, xc, hprev, dys, whg, whc)
+    t = _t(args)
+    out = split_bwd_reference(*(a[:, None] for a in t[:4]), t[4][None], t[5][None])
+    out = [a[:, 0] if a.dim() == 4 else a[0] for a in out]
+    out_p = jgs._gru_scan_bwd_pallas(*map(jnp.asarray, args), interpret=True, time_chunk=32)
+    for name, a, b in zip(("dxg", "dxc", "dwhg", "dwhc", "dh0"), out, out_p):
+        b = np.asarray(b)
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-4 * max(np.abs(b).max(), 1.0),
+                                   err_msg=name)
+    tgs.gru_bwd_remat_launches = 0
+    ruc, rh = tgs.bwd_remat(t[0], t[1], t[2], t[4], t[5])
+    ruc_r, rh_r = tgs.bigru_bwd_remat_reference(t[0][:, None], t[1][:, None], t[2][:, None],
+                                                t[4][None], t[5][None])
+    assert torch.equal(ruc, ruc_r[:, 0]) and torch.equal(rh, rh_r[:, 0])
+    assert ruc.shape == (T, B, 3 * F) and tgs.gru_bwd_remat_launches == 0
 
 
 @pytest.mark.parametrize("T,B,F", [(16, 2, 128), (37, 3, 128), (130, 4, 256)])

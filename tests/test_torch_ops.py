@@ -28,8 +28,18 @@ from tacotron_multispeaker_torch.ops import decoder_loop as tdl  # noqa: E402
 from tacotron_multispeaker_torch.ops import gru_scan as tgs  # noqa: E402
 from tacotron_multispeaker_torch.ops import teacher_decoder as ttd  # noqa: E402
 from tacotron_multispeaker_torch.ops import wgrad as twg  # noqa: E402
-from test_torch_gpu import (bigru_inputs, decoder_case, teacher_args,  # noqa: E402
-                            teacher_case, teacher_weights, torch_weights)
+from tacotron_multispeaker_torch.device import warm_cpu_math  # noqa: E402
+from test_torch_gpu import (bigru_inputs, decoder_case, split_bwd_reference,  # noqa: E402
+                            teacher_args, teacher_case, teacher_weights, torch_weights)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_math_ready():
+    # the tests call the port's ops on CPU tensors directly, not through an
+    # entry point, so they make PyTorch's float32 math ready as the entry
+    # points do (device.warm_cpu_math: a thread's first tanh of a process can
+    # err by ~1e-4)
+    warm_cpu_math()
 
 
 def test_bigru_plain_matches_pallas_interpret_and_reference():
@@ -250,6 +260,78 @@ def test_bigru_backward_plain_matches_pallas_interpret_and_jax_grad():
         ours = (out[0][:, d], out[1][:, d], out[2][d], out[3][d], out[4][d])
         for name, a, b in zip(names, ours, grads):
             _close(a.numpy(), b, 1e-4, f"{name} direction {d}")
+
+
+@pytest.mark.parametrize("F", [128, 32])
+def test_bigru_split_backward_plain_matches_pallas_interpret(F):
+    # the card's two launches as plain parts: the prologue over all T*B rows
+    # (r, u, c and r*h_prev), then the gradient-only scan, then the weight
+    # gradients from their factors.  f32, T=9 B=3, at the post-net's F=128
+    # and tiny's F=32: against the Pallas kernel (the same arithmetic in
+    # another sum order) and the whole plain backward, 1e-5 of each peak
+    rs = np.random.RandomState(22 + F)
+    (xg, xc, whg, whc, h0), hprev, dys = _bigru_bwd_case(rs, T=9, B=3, F=F)
+    targs = [torch.from_numpy(a) for a in (xg, xc, hprev, dys, whg, whc)]
+    tgs.bwd_remat_launches = 0
+    ruc, rh = tgs.bwd_remat(*targs[:3], *targs[4:])
+    assert tgs.bwd_remat_launches == 0                      # CPU: the plain version
+    ruc_r, rh_r = tgs.bigru_bwd_remat_reference(*targs[:3], *targs[4:])
+    assert torch.equal(ruc, ruc_r) and torch.equal(rh, rh_r)
+    assert ruc.shape == (9, 2, 3, 3 * F) and rh.shape == (9, 2, 3, F)
+    out = split_bwd_reference(*targs)
+    whole = tgs.bigru_scan_bwd_reference(*targs)
+    pallas = jgs._bigru_scan_bwd_pallas(*map(jnp.asarray, (xg, xc, hprev, dys, whg, whc)),
+                                        interpret=True)
+    for name, a, b, c in zip(("dxg", "dxc", "dwhg", "dwhc", "dh0"), out, whole, pallas):
+        assert a.dtype == torch.float32
+        _close(a.numpy(), b.numpy(), 1e-5, f"{name} vs the whole plain backward")
+        _close(a.numpy(), c, 1e-5, f"{name} vs the Pallas kernel")
+
+
+def test_bigru_split_backward_prologue_rebuilds_the_forward():
+    # the prologue's r, u and c give back the forward's next state
+    # (u*h_prev + (1-u)*c = ys) and rh = r*h_prev; f32 -> 1e-5 of the peak
+    rs = np.random.RandomState(23)
+    args = bigru_inputs(rs, T=6, B=2, F=32)
+    ys = tgs.bigru_scan_reference(*map(torch.from_numpy, args))
+    hprev = torch.cat([torch.from_numpy(args[4])[None], ys[:-1]])
+    xg, xc, whg, whc = (torch.from_numpy(a) for a in args[:4])
+    ruc, rh = tgs.bwd_remat(xg, xc, hprev, whg, whc)
+    r, u, c = ruc[..., :32], ruc[..., 32:64], ruc[..., 64:]
+    _close((u * hprev + (1.0 - u) * c).numpy(), ys.numpy(), 1e-5, "next state")
+    _close(rh.numpy(), (r * hprev).numpy(), 1e-5, "rh")
+
+
+@pytest.mark.parametrize("name", ["tiny", "single_speaker", "multispeaker_vctk",
+                                  "large_multispeaker", "pod_synthesis"])
+def test_gru_bwd_limits_take_every_preset(name):
+    # both launches of the GRU scan backward (the prologue and the scan) at
+    # each preset's widths (the encoder BiGRU's encoder_depth / 2 and the
+    # post-net's postnet_gru_units: tiny's 32, 128 elsewhere) and batch
+    # (up to pod_synthesis's 256), over its longest output, in both compute
+    # types; the shared memory of both blocks within a block's limit
+    from tacotron_multispeaker_torch.config import get_config
+    cfg = get_config(name)
+    m, tr = cfg.model, cfg.train
+    widths = {m.encoder_depth // 2, m.postnet_gru_units}
+    assert widths <= {32, 128} and tr.batch_size <= 256
+    for F in widths:
+        for esize in (2, 4):
+            tgs.bwd_check_limits(T=tr.max_output_length, B=tr.batch_size, F=F, esize=esize)
+            assert all(s <= tgs._SMEM_LIMIT for s in tgs.bwd_smem_bytes(F, esize))
+
+
+def test_gru_bwd_limits_raise():
+    ok = dict(T=1000, B=32, F=128, esize=2)
+    tgs.bwd_check_limits(**ok)
+    tgs.bwd_check_limits(**{**ok, "F": 184})            # the widest bf16 scan
+    tgs.bwd_check_limits(**{**ok, "F": 128, "esize": 4})  # the widest f32 scan
+    for bad, match in (({"F": 100}, "multiple of 8"), ({"F": 200}, "768"),
+                       ({"F": 520}, "1024 threads"), ({"B": 70000}, "65535"),
+                       ({"T": 2 ** 26, "B": 64}, "2\\^31"), ({"F": 192}, "scan"),
+                       ({"F": 136, "esize": 4}, "scan")):
+        with pytest.raises(ValueError, match=match):
+            tgs.bwd_check_limits(**{**ok, **bad})
 
 
 def test_bigru_function_matches_autograd_of_plain_forward():
