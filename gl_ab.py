@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of one checkout of the port, for an A/B in turns.
 
-    python3 gl_ab.py DIR [build] [--mode gl|decoder|teacher|teacher_fwd|gru_bwd]
+    python3 gl_ab.py DIR [build] [--mode gl|decoder|teacher|teacher_fwd|gru_bwd|gru_fwd]
 
 Runs the port of the checkout in DIR (any commit of it) on inputs made by
 this checkout's ``chip_smoke.py`` and prints one ``AB`` line.  ``build``
@@ -40,6 +40,15 @@ builds every kernel library of DIR first.
   of its launches (profiler: ``bigru`` is every launch, ``remat`` and
   ``scan`` the two of the prologue design); then the bare train step as
   for ``teacher``.
+- ``gru_fwd``: the GRU scan forward (``ops.gru_scan.bigru_scan`` /
+  ``gru_scan``, F=128 bf16, the inputs of ``phase_bigru`` /
+  ``phase_gru_scan``): kernel 3 (two directions) at B=32 T=192 and T=1000
+  and at B=1 T=1000, kernel 1 (one direction) at B=32 T=1000, each call's
+  time (CUDA events) and its launch's device time (profiler); then
+  ``Synthesizer`` at full-width ``multispeaker_vctk`` on the ``serve``
+  path, a B=1 request at input bucket 192 (the median of three host-clock
+  runs and one more run's device-busy ms), and the bare train step as for
+  ``teacher``.
 
 To compare two versions on one card, run it in turns in one command:
 parent, change, change, parent.  Needs a CUDA device.
@@ -181,14 +190,39 @@ def _gru_bwd(c, torch):
     return " | ".join(parts)
 
 
+def _gru_fwd(c, torch):
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.ops import gru_scan as gs
+    from tacotron_multispeaker_torch.synthesizer import Synthesizer
+    parts = []
+    for dirs, B, T in ((2, 32, 192), (2, 32, 1000), (2, 1, 1000), (1, 32, 1000)):
+        fwd, inputs = ((gs.bigru_scan, c._bigru_inputs) if dirs == 2
+                       else (gs.gru_scan, c._gru_inputs))
+        args = inputs(T, B, 128, torch.bfloat16, seed=7 if dirs == 2 else 9)
+        run = lambda: fwd(*args)  # noqa: E731
+        ms = c.cuda_time_ms(run, reps=10)
+        dev = c._launch_device_ms(run, "bigru_scan")
+        parts.append(f"kernel {3 if dirs == 2 else 1} B={B} T={T} {ms:.4f} ms device {dev:.4f}")
+    del args
+    text, spk = c.SERVE_TEXTS[2]
+    syn = Synthesizer(get_config("multispeaker_vctk", c.PATHS["serve"]), seed=0)
+    syn.warmup()
+    one = lambda: syn.synthesize_batch([text], [spk], pad_to=192)  # noqa: E731
+    one()
+    parts.append(f"serve B=1 {_host_ms(torch, one):.2f} ms busy {_busy_ms(torch, one):.2f}")
+    del syn
+    parts.append(_train_step(c, torch))
+    return " | ".join(parts)
+
+
 def main() -> int:
     import torch
     import chip_smoke as c          # this checkout's; it imports the port lazily
     ap = argparse.ArgumentParser()
     ap.add_argument("dir")
     ap.add_argument("build", nargs="?", choices=["build"])
-    ap.add_argument("--mode", choices=["gl", "decoder", "teacher", "teacher_fwd", "gru_bwd"],
-                    default="gl")
+    ap.add_argument("--mode", choices=["gl", "decoder", "teacher", "teacher_fwd", "gru_bwd",
+                                       "gru_fwd"], default="gl")
     opts = ap.parse_args()
     root = os.path.abspath(opts.dir)
     os.chdir(root)
@@ -202,7 +236,8 @@ def main() -> int:
         from tacotron_multispeaker_torch.ops import KERNELS, cuda_build
         cuda_build.build_all(KERNELS)
     line = {"gl": _gl, "decoder": _decoder, "teacher": _teacher,
-            "teacher_fwd": _teacher_fwd, "gru_bwd": _gru_bwd}[opts.mode](c, torch)
+            "teacher_fwd": _teacher_fwd, "gru_bwd": _gru_bwd,
+            "gru_fwd": _gru_fwd}[opts.mode](c, torch)
     print(f"AB {opts.mode} {opts.dir}: {line}", flush=True)
     return 0
 

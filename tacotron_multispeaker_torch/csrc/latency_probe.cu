@@ -19,6 +19,9 @@
 //   trip.
 // - probe_smem_stream: one block of 1024 threads reads a 32 KB shared
 //   buffer with 16-byte loads -> one SM's shared-memory bandwidth.
+// - probe_mma_chain: one warp runs mma.sync.m16n8k16 bf16 products with
+//   f32 sums, each adding into the sum of the one before -> one dependent
+//   tensor-core product of the GRU forward's chain (csrc/bigru_scan.cu).
 
 #include "cluster_common.cuh"
 
@@ -93,6 +96,20 @@ __global__ void __launch_bounds__(STREAM_THREADS) smem_stream_kernel(int reps, f
   if (acc == 0x12345678u) *sink = float(acc);   // keeps the loads
 }
 
+__global__ void __launch_bounds__(32) mma_chain_kernel(int iters, float* sink) {
+  // bf16 A and B values near 2^-8 from the lane number, so the sums stay
+  // finite and the compiler cannot fold the chain
+  const uint32_t v = 0x3b803b80u + (threadIdx.x & 7);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+  for (int it = 0; it < iters; ++it)
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+                 "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(v), "r"(v), "r"(v), "r"(v), "r"(v), "r"(v));
+  if (threadIdx.x == 0) *sink = d[0] + d[1] + d[2] + d[3];
+}
+
 }  // namespace
 
 extern "C" {
@@ -144,6 +161,13 @@ int probe_block_exchange(int threads, int iters, void* sink, void* stream) {
 int probe_smem_stream(int reps, void* sink, void* stream) {
   smem_stream_kernel<<<1, STREAM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       reps, static_cast<float*>(sink));
+  return int(cudaGetLastError());
+}
+
+// One warp's chain of ``iters`` dependent mma.sync.m16n8k16 bf16 products.
+int probe_mma_chain(int iters, void* sink, void* stream) {
+  mma_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      iters, static_cast<float*>(sink));
   return int(cudaGetLastError());
 }
 

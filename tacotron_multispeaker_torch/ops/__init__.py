@@ -6,7 +6,8 @@ tensors, or raises; it never falls back.  Module-level ``*launches``
 integers count the kernel launches.
 
 * :mod:`.gru_scan` — ``bigru_scan``, the fused two-direction GRU scan
-  (replaces ``tacotron_multispeaker_tpu/ops/gru_scan.py bigru_scan_pallas``),
+  (replaces ``tacotron_multispeaker_tpu/ops/gru_scan.py bigru_scan_pallas``;
+  bf16 on the tensor cores, f32 on an FMA kernel, by ``fwd_route``),
   its backward ``bigru_scan_bwd`` (``_bigru_scan_bwd_pallas``: a carry-free
   prologue, ``bwd_remat``, then the gradient-only scan) and the autograd
   Function ``BiGRUScan`` joining them.

@@ -2,8 +2,11 @@
 
 Port of ``tacotron_multispeaker_tpu/ops/gru_scan.py``:
 
-* two directions: ``bigru_scan_pallas`` (the forward, ``csrc/bigru_scan.cu``)
-  and ``_bigru_scan_bwd_pallas`` (the backward, ``csrc/bigru_scan_bwd.cu``:
+* two directions: ``bigru_scan_pallas`` (the forward, ``csrc/bigru_scan.cu``:
+  bf16 on the tensor cores with the weights resident in registers, f32 and
+  wider bf16 on the first design's FMA kernel, the route chosen by
+  :func:`fwd_route` before the launch) and ``_bigru_scan_bwd_pallas`` (the
+  backward, ``csrc/bigru_scan_bwd.cu``:
   a carry-free prologue over all T·B rows, :func:`bwd_remat`, plain
   :func:`bigru_bwd_remat_reference`, then the gradient-only reverse scan,
   plain :func:`bigru_bwd_scan_reference`; the weight gradients reduced by
@@ -38,10 +41,12 @@ import torch
 from . import cuda_build, wgrad
 
 # launches of the CUDA kernels (the plain versions do not count)
-launches = 0                # two-direction forward, csrc/bigru_scan.cu
+launches = 0                # two-direction forward on the tensor cores, csrc/bigru_scan.cu
+fma_launches = 0            # two-direction forward on the FMA route, csrc/bigru_scan.cu
 bwd_launches = 0            # two-direction backward's scan, csrc/bigru_scan_bwd.cu
 bwd_remat_launches = 0      # two-direction backward's prologue before it
-gru_launches = 0            # one-direction forward, csrc/bigru_scan.cu
+gru_launches = 0            # one-direction forward on the tensor cores, csrc/bigru_scan.cu
+gru_fma_launches = 0        # one-direction forward on the FMA route, csrc/bigru_scan.cu
 gru_bwd_launches = 0        # one-direction backward's scan, csrc/bigru_scan_bwd.cu
 gru_bwd_remat_launches = 0  # one-direction backward's prologue before it
 
@@ -208,10 +213,64 @@ def gru_scan(xg: torch.Tensor, xc: torch.Tensor, whg: torch.Tensor,
     return _fwd_kernel(xg, xc, whg, whc, h0)
 
 
-def _fwd_kernel(xg, xc, whg, whc, h0):
+# the forward's routes (csrc/bigru_scan.cu), by the launcher's route code
+ROUTES = ("fma", "mma")
+_MMA_MAX_F = 128        # 8 k-steps of 16: 12 * ceil(F/16) weight registers a lane
+_MMA_ROWS = 4           # batch rows a tensor-core block (every other column of the product's N)
+
+
+def fwd_route(F: int, dtype: torch.dtype) -> str:
+    """The forward's route for width F in the compute dtype, decided here
+    alone (csrc/bigru_scan.cu's launcher only refuses a route outside its
+    limits): ``"mma"`` (the tensor cores, weights resident in registers) for
+    bf16 with F a multiple of 8 up to 128, else ``"fma"`` (the first
+    design's kernel: f32, whose product on the tensor cores would be TF32,
+    and wider bf16)."""
+    ok = dtype == torch.bfloat16 and 0 < F <= _MMA_MAX_F and F % 8 == 0
+    return "mma" if ok else "fma"
+
+
+def fwd_smem_bytes(F: int, esize: int, route: str) -> int:
+    """Shared memory of a forward block on ``route`` (``bigru_scan_smem_bytes``):
+    mma: round(h) and round(r*h) in the product's 8 columns, [8][16 ceil(F/16)
+    + 8] bf16 each, and three step slots of the block's rows of xg and xc, 8
+    elements of padding a row; fma: the weights and four vectors of F
+    floats."""
+    if route == "mma":
+        return (2 * 8 * (16 * -(-F // 16) + 8) + 3 * _MMA_ROWS * (3 * F + 16)) * 2
+    return -(-3 * F * F * esize // 16) * 16 + 4 * F * 4
+
+
+def fwd_check_limits(*, B: int, F: int, esize: int, route: str, name: str = "bigru_scan"):
+    """Raise ValueError where the forward's kernel on ``route`` does not take
+    these dims (the limits of csrc/bigru_scan.cu's note)."""
+    if route == "mma":
+        if esize != 2 or F % 8 or not 0 < F <= _MMA_MAX_F:
+            raise ValueError(f"{name} tensor-core route: bf16 with F a multiple of 8 up to "
+                             f"{_MMA_MAX_F}, got F={F} with {esize}-byte elements")
+        if -(-B // _MMA_ROWS) > 65535:
+            raise ValueError(f"{name} kernel: B = {B} > {65535 * _MMA_ROWS} rows "
+                             f"({_MMA_ROWS} a block)")
+    elif route == "fma":
+        if 2 * F > 1024:
+            raise ValueError(f"{name} kernel: 2F = {2 * F} > 1024 threads")
+        if B > 65535:
+            raise ValueError(f"{name} kernel: B = {B} > 65535 rows (one block each)")
+    else:
+        raise ValueError(f"{name}: route must be one of {ROUTES}, got {route!r}")
+    smem = fwd_smem_bytes(F, esize, route)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name} kernel: F={F} needs {smem} bytes of shared "
+                         f"memory (> {_SMEM_LIMIT})")
+
+
+def _fwd_kernel(xg, xc, whg, whc, h0, route=None):
     """One launch of csrc/bigru_scan.cu, two directions ([T, 2, B, .]
-    streams) or one ([T, B, .]), on checked arguments → ys (xc's shape)."""
-    global launches, gru_launches
+    streams) or one ([T, B, .]), on checked arguments → ys (xc's shape).
+    ``route`` defaults to :func:`fwd_route`'s; ``"fma"`` may be asked for
+    any width (the first design, for comparison), ``"mma"`` only where
+    :func:`fwd_route` gives it."""
+    global launches, fma_launches, gru_launches, gru_fma_launches
     bi = xg.dim() == 4
     name = "bigru_scan" if bi else "gru_scan"
     if xg.device.type != "cuda":
@@ -220,29 +279,33 @@ def _fwd_kernel(xg, xc, whg, whc, h0):
         if not a.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
     T, B, F = xg.shape[0], xg.shape[-2], xc.shape[-1]
-    lib = _lib()
-    is_bf16 = int(xg.dtype == torch.bfloat16)
-    if 2 * F > 1024:
-        raise ValueError(f"{name} kernel: 2F = {2 * F} > 1024 threads")
-    if B > 65535:
-        raise ValueError(f"{name} kernel: B = {B} > 65535 rows (one block each)")
-    smem = lib.bigru_scan_smem_bytes(F, is_bf16)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name} kernel: F={F} needs {smem} bytes of shared "
-                         f"memory (> {_SMEM_LIMIT})")
+    if route is None:
+        route = fwd_route(F, xg.dtype)
+    elif route == "mma" and fwd_route(F, xg.dtype) != "mma":
+        raise ValueError(f"{name}: the tensor-core route takes bf16 with F a multiple of 8 "
+                         f"up to {_MMA_MAX_F}, got F={F} {xg.dtype}")
+    fwd_check_limits(B=B, F=F, esize=xg.element_size(), route=route, name=name)
+    if route == "mma" and (xg.data_ptr() | xc.data_ptr()) % 16:
+        raise ValueError(f"{name} tensor-core route: xg and xc must be 16-byte aligned")
     ys = torch.empty(xc.shape, dtype=xg.dtype, device=xg.device)
-    if T == 0 or B == 0:
+    if ys.numel() == 0:
         return ys
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gru_scan_launch(xg.data_ptr(), xc.data_ptr(), whg.data_ptr(),
-                                  whc.data_ptr(), h0.data_ptr(), ys.data_ptr(), T,
-                                  2 if bi else 1, B, F, is_bf16, stream)
-    cuda_build.check(err, f"{name} kernel launch")
-    if bi:
-        launches += 1
+        err = _lib().gru_scan_launch(xg.data_ptr(), xc.data_ptr(), whg.data_ptr(),
+                                     whc.data_ptr(), h0.data_ptr(), ys.data_ptr(), T,
+                                     2 if bi else 1, B, F, int(xg.dtype == torch.bfloat16),
+                                     ROUTES.index(route), stream)
+    cuda_build.check(err, f"{name} kernel launch ({route} route)")
+    if route == "mma":
+        if bi:
+            launches += 1
+        else:
+            gru_launches += 1
+    elif bi:
+        fma_launches += 1
     else:
-        gru_launches += 1
+        gru_fma_launches += 1
     return ys
 
 
@@ -467,9 +530,9 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("bigru_scan")
     if not getattr(lib, "_typed", False):
         p = ctypes.c_void_p
-        lib.gru_scan_launch.argtypes = [p] * 6 + [ctypes.c_int] * 5 + [p]
+        lib.gru_scan_launch.argtypes = [p] * 6 + [ctypes.c_int] * 6 + [p]
         lib.gru_scan_launch.restype = ctypes.c_int
-        lib.bigru_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.bigru_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.bigru_scan_smem_bytes.restype = ctypes.c_size_t
         lib._typed = True
     return lib

@@ -165,21 +165,43 @@ def torch_weights(w, device="cpu"):
     return tdl.DecoderWeights(**{k: conv(v) for k, v in w.items()})
 
 
+# the forward's routes on the card: the one ``fwd_route`` picks for each
+# dtype, and the FMA kernel forced where bf16 takes the tensor cores
+FWD_ROUTES = [(torch.float32, "fma", 1e-5), (torch.bfloat16, "mma", 3e-2),
+              (torch.bfloat16, "fma", 3e-2)]
+
+
+def _fwd_on_card(fwd, args, route, dirs):
+    """``fwd`` (the public wrapper) when it takes ``route``, else the kernel
+    with ``route`` forced; asserts one launch on that route's counter."""
+    names = {"mma": "launches" if dirs == 2 else "gru_launches",
+             "fma": "fma_launches" if dirs == 2 else "gru_fma_launches"}
+    before = {r: getattr(tgs, n) for r, n in names.items()}
+    F = args[1].shape[-1]
+    ys = (fwd(*args) if tgs.fwd_route(F, args[0].dtype) == route
+          else tgs._fwd_kernel(*args, route=route))
+    assert {r: getattr(tgs, n) - before[r] for r, n in names.items()} == {
+        r: int(r == route) for r in names}
+    return ys
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
-def test_bigru_kernel_matches_plain_on_card(cuda, dtype, tol):
+@pytest.mark.parametrize("F", [128, 32])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 32])
+@pytest.mark.parametrize("dtype,route,tol", FWD_ROUTES)
+def test_bigru_kernel_matches_plain_on_card(cuda, dtype, route, tol, B, F):
     # f32: same casts, sums in another order -> 1e-5; bf16: one flipped
     # rounding of a matmul input (ulp 2^-8 near 1), carried by the
-    # recurrence -> 3e-2
+    # recurrence -> 3e-2.  B: one row, a partial block of the tensor-core
+    # route's 4 rows, two full blocks, one past them, eight blocks
     rs = np.random.RandomState(4)
-    args = [torch.from_numpy(a).to(cuda) for a in bigru_inputs(rs, T=33, B=5, F=128,
+    args = [torch.from_numpy(a).to(cuda) for a in bigru_inputs(rs, T=33, B=B, F=F,
                                                                 scale=0.08)]
     args = [a.to(dtype) for a in args[:4]] + [args[4]]
-    before = tgs.launches
-    ys = tgs.bigru_scan(*args)
+    ys = _fwd_on_card(tgs.bigru_scan, args, route, dirs=2)
     ref = tgs.bigru_scan_reference(*args)
     torch.cuda.synchronize()
-    assert tgs.launches == before + 1
+    assert ys.dtype == dtype and ys.shape == ref.shape
     assert (ys.float() - ref.float()).abs().max().item() <= tol
 
 
@@ -218,7 +240,8 @@ def test_decoder_loop_kernel_matches_plain_on_card(cuda, dtype, ftol, atol, clus
 def test_kernels_raise_outside_their_limits_on_card(cuda):
     rs = np.random.RandomState(6)
     args = [torch.from_numpy(a).to(cuda) for a in bigru_inputs(rs, T=3, B=2, F=520)]
-    before = (tgs.launches, tgs.gru_launches, tgs.gru_bwd_launches)
+    before = (tgs.launches, tgs.fma_launches, tgs.gru_launches, tgs.gru_fma_launches,
+              tgs.gru_bwd_launches)
     with pytest.raises(ValueError, match="1024 threads"):
         tgs.bigru_scan(*args)                                  # 2F > 1024
     uni = [torch.from_numpy(a).to(cuda) for a in gru_inputs(rs, T=3, B=2, F=520)]
@@ -243,7 +266,8 @@ def test_kernels_raise_outside_their_limits_on_card(cuda):
     with pytest.raises(ValueError, match="3H=2052"):
         tdl.decoder_loop(torch_weights(w, cuda), *targs, n_steps, M)
     assert tdl.launches == dl_before
-    assert (tgs.launches, tgs.gru_launches, tgs.gru_bwd_launches) == before
+    assert (tgs.launches, tgs.fma_launches, tgs.gru_launches, tgs.gru_fma_launches,
+            tgs.gru_bwd_launches) == before
     # the wrapper's shared-memory count is the kernel's own
     for C in tdl.CLUSTER_SIZES:
         for is_bf16, vec in ((0, 4), (1, 8)):
@@ -263,9 +287,11 @@ def test_synthesizer_on_card_matches_cpu(cuda):
     cpu = Synthesizer(cfg, device="cpu", seed=4)
     gpu = Synthesizer(cfg, device=cuda, seed=4)
     angles = np.random.RandomState(0).uniform(-math.pi, math.pi, (2, 50, 513))
-    before = (tgs.launches, tdl.launches)
+    before = (tgs.fma_launches, tgs.launches, tdl.launches)
     w_g, a_g = gpu.synthesize_batch(["Hello there.", "Hi."], [1, 2], gl_angles=angles)
-    assert (tgs.launches - before[0], tdl.launches - before[1]) == (2, 1)
+    # f32: both BiGRUs on the forward's FMA route
+    assert (tgs.fma_launches - before[0], tgs.launches - before[1],
+            tdl.launches - before[2]) == (2, 0, 1)
     w_c, a_c = cpu.synthesize_batch(["Hello there.", "Hi."], [1, 2], gl_angles=angles)
     np.testing.assert_allclose(a_g, a_c, atol=1e-4)
     for x, y in zip(w_g, w_c):
@@ -304,33 +330,72 @@ def test_bigru_backward_kernel_matches_plain_on_card(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-def test_gru_scan_kernels_match_plain_on_card(cuda, dtype, tol):
-    # the one-direction launchers: forward (f32 1e-5 absolute, bf16 one
-    # flipped rounding carried -> 3e-2) and the backward with its wgrad
-    # launch, every output relative to max(peak, 1) as the bigru backward's
+@pytest.mark.parametrize("F", [128, 96, 32])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 32])
+@pytest.mark.parametrize("dtype,route,tol", FWD_ROUTES)
+def test_gru_scan_kernels_match_plain_on_card(cuda, dtype, route, tol, B, F):
+    # the one-direction launchers: the forward on ``route`` (f32 1e-5
+    # absolute, bf16 one flipped rounding carried -> 3e-2) and the backward
+    # with its wgrad launch, every output relative to max(peak, 1) as the
+    # bigru backward's (f32 1e-4, bf16 3e-2)
+    btol = 1e-4 if dtype == torch.float32 else tol
     rs = np.random.RandomState(12)
     xg, xc, whg, whc, h0 = (torch.from_numpy(a).to(cuda)
-                            for a in gru_inputs(rs, T=33, B=5, F=96, scale=0.08))
+                            for a in gru_inputs(rs, T=33, B=B, F=F, scale=0.08))
     xg, xc, whg, whc = (a.to(dtype) for a in (xg, xc, whg, whc))
-    before = (tgs.gru_launches, tgs.gru_bwd_launches, twg.launches, tgs.launches,
+    before = (tgs.gru_bwd_launches, twg.launches, tgs.launches, tgs.fma_launches,
               tgs.gru_bwd_remat_launches)
-    ys = tgs.gru_scan(xg, xc, whg, whc, h0)
+    ys = _fwd_on_card(tgs.gru_scan, (xg, xc, whg, whc, h0), route, dirs=1)
     ref = tgs.gru_scan_reference(xg, xc, whg, whc, h0)
     hprev = torch.cat([h0[None].to(dtype), ys[:-1]]).contiguous()
     dys = torch.from_numpy(rs.randn(*ys.shape).astype(np.float32)).to(cuda).to(dtype)
     out = tgs.gru_scan_bwd(xg, xc, hprev, dys, whg, whc)
     out_r = tgs.gru_scan_bwd_reference(xg, xc, hprev, dys, whg, whc)
     torch.cuda.synchronize()
-    assert (tgs.gru_launches - before[0], tgs.gru_bwd_launches - before[1],
-            twg.launches - before[2], tgs.launches - before[3],
-            tgs.gru_bwd_remat_launches - before[4]) == (1, 1, 1, 0, 1)
-    assert ys.dtype == dtype and ys.shape == (33, 5, 96)
+    assert (tgs.gru_bwd_launches - before[0], twg.launches - before[1],
+            tgs.launches - before[2], tgs.fma_launches - before[3],
+            tgs.gru_bwd_remat_launches - before[4]) == (1, 1, 0, 0, 1)
+    assert ys.dtype == dtype and ys.shape == (33, B, F)
     assert (ys.float() - ref.float()).abs().max().item() <= (1e-5 if dtype == torch.float32
                                                              else tol)
     for name, a, b in zip(("dxg", "dxc", "dwhg", "dwhc", "dh0"), out, out_r):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
-        assert _err(a, b) <= tol, (name, _err(a, b))
+        assert _err(a, b) <= btol, (name, _err(a, b))
+
+
+@pytest.mark.gpu
+def test_gru_fwd_limits_match_the_kernels_on_card(cuda):
+    # the wrapper's shared-memory counts are the library's own, the launcher
+    # refuses the tensor-core route wherever ``fwd_route`` does not give it
+    # (before touching any pointer), and a forced tensor-core route outside
+    # its limits or a misaligned stream raises in the wrapper before any launch
+    lib = tgs._lib()
+    for F in range(1, 260):
+        for dtype, is_bf16, esize in ((torch.float32, 0, 4), (torch.bfloat16, 1, 2)):
+            route = tgs.fwd_route(F, dtype)
+            if route == "fma":
+                assert lib.gru_scan_launch(*[None] * 6, 1, 2, 1, F, is_bf16,
+                                           tgs.ROUTES.index("mma"), None) != 0, (F, dtype)
+            assert tgs.fwd_smem_bytes(F, esize, "fma") == lib.bigru_scan_smem_bytes(
+                F, is_bf16, 0), (F, dtype)
+            if route == "mma":
+                assert tgs.fwd_smem_bytes(F, esize, "mma") == lib.bigru_scan_smem_bytes(
+                    F, is_bf16, 1), F
+    rs = np.random.RandomState(15)
+    before = (tgs.launches, tgs.fma_launches)
+    args = [torch.from_numpy(a).to(cuda) for a in bigru_inputs(rs, T=3, B=2, F=136)]
+    bf = [a.to(torch.bfloat16) for a in args[:4]] + [args[4]]
+    with pytest.raises(ValueError, match="tensor-core route"):
+        tgs._fwd_kernel(*bf, route="mma")                    # F past the register budget
+    args = [torch.from_numpy(a).to(cuda) for a in bigru_inputs(rs, T=3, B=2, F=32)]
+    with pytest.raises(ValueError, match="tensor-core route"):
+        tgs._fwd_kernel(*args, route="mma")                  # f32
+    bf = [a.to(torch.bfloat16) for a in args[:4]] + [args[4]]
+    xg = torch.empty(bf[0].numel() + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    xg = xg.view(bf[0].shape).copy_(bf[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tgs.bigru_scan(xg, *bf[1:])
+    assert (tgs.launches, tgs.fma_launches) == before
 
 
 @pytest.mark.gpu
@@ -422,12 +487,12 @@ def test_gru_module_on_card_matches_plain(cuda, reverse):
     cpu = GRU(64, 128, use_pallas=True)
     gpu = GRU(64, 128, use_pallas=True).to(cuda)
     gpu.load_state_dict(cpu.state_dict())
-    before = (tgs.gru_launches, tgs.gru_bwd_launches, twg.launches)
+    before = (tgs.gru_fma_launches, tgs.gru_bwd_launches, twg.launches)
     ys_g = gpu(xs.to(cuda), lengths.to(cuda), reverse=reverse)
     (ys_g * w.to(cuda)).sum().backward()
     torch.cuda.synchronize()
-    assert (tgs.gru_launches - before[0], tgs.gru_bwd_launches - before[1],
-            twg.launches - before[2]) == (1, 1, 1)
+    assert (tgs.gru_fma_launches - before[0], tgs.gru_bwd_launches - before[1],
+            twg.launches - before[2]) == (1, 1, 1)             # f32: the FMA route
     ys_c = cpu(xs, lengths, reverse=reverse)
     (ys_c * w).sum().backward()
     assert _err(ys_g.cpu(), ys_c) <= 1e-4

@@ -174,7 +174,7 @@ def test_gru_module_matches_jax(gru_pair, use_pallas, reverse):
     ys_j = jm.apply(v, jx, jl, reverse=reverse)
     g_j = jax.grad(lambda p: jnp.sum(jm.apply({"params": p}, jx, jl, reverse=reverse) * jw))(
         v["params"])
-    tgs.gru_launches = tgs.gru_bwd_launches = 0
+    tgs.gru_launches = tgs.gru_fma_launches = tgs.gru_bwd_launches = 0
     ys_t = model(torch.from_numpy(xs), torch.from_numpy(lengths), reverse=reverse)
     np.testing.assert_allclose(ys_t.detach().numpy(), np.asarray(ys_j), atol=1e-5)
     # padded steps are exactly zero on both sides
@@ -186,7 +186,7 @@ def test_gru_module_matches_jax(gru_pair, use_pallas, reverse):
         np.testing.assert_allclose(got[path], b, rtol=1e-4,
                                    atol=1e-3 * max(float(np.abs(b).max()), 1.0),
                                    err_msg=f"{'/'.join(path)} reverse={reverse}")
-    assert tgs.gru_launches == tgs.gru_bwd_launches == 0     # CPU: plain versions
+    assert tgs.gru_launches == tgs.gru_fma_launches == tgs.gru_bwd_launches == 0  # CPU: plain
 
 
 def _leaves(tree, prefix=()):
@@ -222,7 +222,7 @@ def test_bigru_keeps_its_parameter_tree():
 
 
 def test_gru_wrappers_raise_on_bad_inputs_and_cpu_launches_nothing():
-    tgs.gru_launches = tgs.gru_bwd_launches = twg.launches = 0
+    tgs.gru_launches = tgs.gru_fma_launches = tgs.gru_bwd_launches = twg.launches = 0
     args = _t(gru_inputs(np.random.RandomState(4), 5, 2, 16))
     assert torch.equal(tgs.gru_scan(*args), tgs.gru_scan_reference(*args))
     with pytest.raises(ValueError, match="xg"):
@@ -242,4 +242,5 @@ def test_gru_wrappers_raise_on_bad_inputs_and_cpu_launches_nothing():
         tgs.gru_scan_bwd(args[0], args[1], hprev, hprev[:2], *args[2:4])
     with pytest.raises(ValueError, match="reverse"):
         tmod.GRU(4, 8)(torch.zeros(1, 3, 4), reverse=True)
-    assert tgs.gru_launches == tgs.gru_bwd_launches == twg.launches == 0
+    assert (tgs.gru_launches == tgs.gru_fma_launches == tgs.gru_bwd_launches == twg.launches
+            == 0)

@@ -101,7 +101,7 @@ def test_decoder_loop_plain_matches_jax_reference_and_pallas_interpret():
 
 
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
-    tgs.launches = 0
+    tgs.launches = tgs.fma_launches = 0
     tdl.launches = 0
     rs = np.random.RandomState(2)
     args = [torch.from_numpy(a) for a in bigru_inputs(rs, T=4, B=2, F=16)]
@@ -111,7 +111,7 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     out = tdl.decoder_loop(tw, *targs, n_steps, M)
     ref = tdl.decoder_loop_reference(tw, *targs, n_steps, M)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
-    assert tgs.launches == 0 and tdl.launches == 0
+    assert tgs.launches == tgs.fma_launches == 0 and tdl.launches == 0
 
 
 def test_wrappers_raise_on_bad_inputs():
@@ -332,6 +332,67 @@ def test_gru_bwd_limits_raise():
                        ({"F": 136, "esize": 4}, "scan")):
         with pytest.raises(ValueError, match=match):
             tgs.bwd_check_limits(**{**ok, **bad})
+
+
+@pytest.mark.parametrize("name", ["tiny", "single_speaker", "multispeaker_vctk",
+                                  "large_multispeaker", "pod_synthesis"])
+def test_gru_fwd_routes_take_every_preset(name):
+    # the forward at each preset's widths (the encoder BiGRU's encoder_depth
+    # / 2 and the post-net's postnet_gru_units) and batch: bf16 takes the
+    # tensor cores, f32 the FMA kernel, and both routes' limits hold (the
+    # shared memory of a block within a block's limit)
+    from tacotron_multispeaker_torch.config import get_config
+    cfg = get_config(name)
+    m, tr = cfg.model, cfg.train
+    for F in {m.encoder_depth // 2, m.postnet_gru_units}:
+        assert tgs.fwd_route(F, torch.bfloat16) == "mma"
+        assert tgs.fwd_route(F, torch.float32) == "fma"
+        for route, esize in (("mma", 2), ("fma", 2), ("fma", 4)):
+            tgs.fwd_check_limits(B=tr.batch_size, F=F, esize=esize, route=route)
+            assert tgs.fwd_smem_bytes(F, esize, route) <= tgs._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("F,dtype,route", [
+    (128, torch.bfloat16, "mma"), (32, torch.bfloat16, "mma"), (72, torch.bfloat16, "mma"),
+    (8, torch.bfloat16, "mma"), (100, torch.bfloat16, "fma"), (136, torch.bfloat16, "fma"),
+    (195, torch.bfloat16, "fma"), (128, torch.float32, "fma"), (32, torch.float32, "fma"),
+    (0, torch.bfloat16, "fma")])
+def test_gru_fwd_route(F, dtype, route):
+    # tensor cores for bf16 with F a multiple of 8 up to the register
+    # budget's 128; f32 (whose product there would be TF32) and every other
+    # bf16 width on the FMA kernel, which took them before
+    assert tgs.fwd_route(F, dtype) == route
+
+
+def test_gru_fwd_limits_raise():
+    ok = dict(B=32, F=128, esize=2)
+    tgs.fwd_check_limits(**ok, route="mma")
+    tgs.fwd_check_limits(**ok, route="fma")
+    tgs.fwd_check_limits(**{**ok, "B": 4 * 65535}, route="mma")   # 4 rows a block
+    tgs.fwd_check_limits(**{**ok, "F": 195}, route="fma")          # the widest bf16 FMA block
+    tgs.fwd_check_limits(**{**ok, "F": 138, "esize": 4}, route="fma")
+    for bad, route, match in (({"F": 136}, "mma", "tensor-core"),
+                              ({"F": 100}, "mma", "tensor-core"),
+                              ({"esize": 4}, "mma", "tensor-core"),
+                              ({"B": 4 * 65535 + 1}, "mma", "rows"),
+                              ({"F": 520}, "fma", "1024 threads"),
+                              ({"B": 65536}, "fma", "65535"),
+                              ({"F": 196}, "fma", "shared memory"),
+                              ({"F": 139, "esize": 4}, "fma", "shared memory"),
+                              ({}, "tf32", "route")):
+        with pytest.raises(ValueError, match=match):
+            tgs.fwd_check_limits(**{**ok, **bad}, route=route)
+
+
+def test_gru_fwd_smem_counts():
+    # the mirror of bigru_scan_smem_bytes: the tensor-core block's two
+    # [8][16 ceil(F/16) + 8] B-operand buffers and three slots of 4 rows of
+    # xg and xc padded by 8 elements; the FMA block's weights and four
+    # vectors of F floats
+    assert tgs.fwd_smem_bytes(128, 2, "mma") == (2 * 8 * 136 + 3 * 4 * 400) * 2 == 13952
+    assert tgs.fwd_smem_bytes(72, 2, "mma") == (2 * 8 * 88 + 3 * 4 * 232) * 2
+    assert tgs.fwd_smem_bytes(128, 2, "fma") == 3 * 128 * 128 * 2 + 4 * 128 * 4
+    assert tgs.fwd_smem_bytes(100, 4, "fma") == 3 * 100 * 100 * 4 + 4 * 100 * 4
 
 
 def test_bigru_function_matches_autograd_of_plain_forward():

@@ -111,14 +111,14 @@ def test_serve_bucket_and_iters_agree(preset, overrides):
 
 
 def test_synthesize_on_cpu_returns_a_wav_and_launches_nothing(tmp_path):
-    gru_scan.launches = 0
+    gru_scan.launches = gru_scan.fma_launches = 0
     decoder_loop.launches = 0
     cfg = tconfig.get_config("tiny", "model.num_speakers=3,model.max_iters=8")
     syn = Synthesizer(cfg, device="cpu", seed=1)
     syn.warmup()
     data = syn.synthesize("Hello.", speaker_id=2)
     assert data[:4] == b"RIFF" and len(data) > 44
-    assert gru_scan.launches == 0 and decoder_loop.launches == 0
+    assert gru_scan.launches == gru_scan.fma_launches == decoder_loop.launches == 0
     path = str(tmp_path / "weights.pt")
     syn.save(path)
     other = Synthesizer(cfg, device="cpu", seed=2).load(path)
@@ -140,7 +140,8 @@ def _python_files():
     yield os.path.join(REPO, "gl_ab.py")
     # the tools that import the port or chip_smoke.py
     for name in ("decoder_variants.py", "decoder_phase_clock.py", "teacher_bwd_variants.py",
-                 "gru_bwd_variants.py", "gru_bwd_phase_clock.py", "variant_build.py"):
+                 "gru_bwd_variants.py", "gru_bwd_phase_clock.py", "gru_fwd_variants.py",
+                 "gru_fwd_phase_clock.py", "gru_fwd_sigmoid_check.py", "variant_build.py"):
         yield os.path.join(REPO, "tools", name)
 
 
