@@ -30,7 +30,12 @@ Phases (no failure is caught; any exception exits non-zero):
    (tensor cores for bf16 up to F=128, the FMA kernel for f32 and wider
    bf16) at B=1, 3, 8, 9, 32, T=1, 192, 1000 and F=128, 32, 72, 100, 136,
    timed on both routes in the same call, its per-step latency bound from
-   the barrier and mma.sync chain probes.
+   the barrier and mma.sync chain probes.  The attention step and its
+   per-shard partial (kernels 9 and 10, one cluster kernel) are held at the
+   plan's cluster size and every size the card takes, on both routes
+   (staged; direct for rows that are not 16-byte multiples), each launch
+   repeated bit for bit (a race shows as a launch that differs), and timed
+   at each C by the device time of a launch beside its latency bound.
 4. Checks ``generate`` at full-width ``multispeaker_vctk``, dropout off: in
    float32 on the card against the plain path on the CPU (the default and
    the location-attention path), and in bfloat16 (the serving precision)
@@ -151,6 +156,8 @@ def _counters():
             "conv_bank": (conv_bank, "launches"),
             "attention_step": (attention_step, "launches"),
             "attention_step_partial": (attention_step, "partial_launches"),
+            "attention_step_direct": (attention_step, "direct_launches"),
+            "attention_step_partial_direct": (attention_step, "partial_direct_launches"),
             "overlap_add": (overlap_add, "launches"),
             "gl_iteration": (gl_iteration, "launches")}
 
@@ -1485,10 +1492,99 @@ def _attention_case(B, L, A, D, dtype, seed, loc=True):
             rn(B, L, A, sc=0.3) if loc else None)
 
 
+def _attention_bound_ms(args, out_floats):
+    """Bytes the step must move (memory, q, v, mask, the keys and location
+    terms of the unmasked positions only: a masked energy is -1e9 whatever
+    its keys hold; the outputs written once) and its f32 operations (three
+    a key element, four with the location term, two a context element)."""
+    keys, q, v, memory, mask = args[:5]
+    loc = args[5] if len(args) > 5 else None
+    B, L, A = keys.shape
+    on = int(mask.sum().item())
+    key_bytes = on * A * keys.element_size() * (2 if loc is not None else 1)
+    moved = key_bytes + _nbytes(q, v, memory, mask) + 4 * out_floats
+    return _bound_ms(moved, f32_flops=on * (4 if loc is not None else 3) * A
+                     + B * L * 2 * memory.shape[-1])
+
+
+# Dependent phases of a launch of csrc/attention_step.cu: each waits one
+# round trip and one DSMEM exchange + cluster barrier (the slabs' arrival
+# with the softmax's (m_k, s_k) exchange; the context's reduce-scatter)
+ATTENTION_PHASES = 2
+
+
+def _attention_latency_bound_ms(args, C, coresident, probe):
+    """The launch's latency bound (``_cluster_latency_bound_ms`` over one
+    step): ATTENTION_PHASES phases; a row's step streams its keys, location
+    terms and memory."""
+    keys, memory = args[0], args[3]
+    loc = args[5] if len(args) > 5 else None
+    step_bytes = _nbytes(keys[0], memory[0]) + (0 if loc is None else _nbytes(loc[0]))
+    return _cluster_latency_bound_ms(1, keys.shape[0], ATTENTION_PHASES, step_bytes, C,
+                                     coresident, probe)
+
+
+def _attention_sizes(counts, L):
+    """None (the plan's C) and every C the card holds at these widths."""
+    from tacotron_multispeaker_torch.ops.cluster_plan import CLUSTER_SIZES
+    return [None] + [C for C in CLUSTER_SIZES if C <= L and counts[C] > 0]
+
+
+def _attention_counts(args, partial):
+    import torch
+    from tacotron_multispeaker_torch.ops import attention_step as ast
+    keys, memory = args[0], args[3]
+    loc = args[5] if len(args) > 5 else None
+    B, L, A = keys.shape
+    D = memory.shape[-1]
+    return ast.cluster_counts(L, A, D, int(keys.dtype == torch.bfloat16), loc is not None,
+                              int(partial), ast.rows_aligned(A, D, keys.element_size()),
+                              keys.device)
+
+
+# launches of each attention case at each C held bit for bit against the
+# first: the kernel's sums run in a fixed order, so a launch that differs
+# shows a race between its warps or CTAs
+ATTENTION_REPEATS = 20
+
+
+def _attention_repeatable(fn, args, C, first):
+    """Whether ATTENTION_REPEATS more launches of ``fn`` at cluster ``C``
+    give ``first``, its first launch's outputs, bit for bit."""
+    import torch
+    for _ in range(ATTENTION_REPEATS):
+        got = fn(*args, cluster=C)
+        if not all(torch.equal(a, b) for a, b in zip(got, first)):
+            return False
+    return True
+
+
+def _attention_timing(tag, fn, args, probe, reps=50):
+    """Call ms (CUDA events, back to back), the device ms of a launch
+    (profiler) at the plan's C and at every C, the latency bound and its
+    share reached, for one shape."""
+    from tacotron_multispeaker_torch.ops import attention_step as ast
+    ms = cuda_time_ms(lambda: fn(*args), reps=reps)
+    dev = _launch_device_ms(lambda: fn(*args), "attention_step", reps=20)
+    C, route, coresident = ast.last_plan
+    sweep = {}
+    for c in _attention_sizes(_attention_counts(args, fn is ast.attention_step_partial),
+                              args[0].shape[1])[1:]:
+        sweep[c] = round(_launch_device_ms(lambda c=c: fn(*args, cluster=c), "attention_step",
+                                           reps=20), 4)
+        coresident_c = ast.last_plan[2]
+        sweep[c] = (sweep[c], round(_attention_latency_bound_ms(args, c, coresident_c, probe), 5))
+    lat = _attention_latency_bound_ms(args, C, coresident, probe)
+    log(f"[{tag}] call {ms:.4f} ms back to back (the wrapper's host time bounds it), device "
+        f"{dev:.4f} ms a launch at the plan's C={C} ({route}, {coresident} clusters "
+        f"co-resident); latency bound {lat:.5f} ms ({100 * lat / dev:.1f} % of it reached); "
+        f"by C (device ms, latency bound ms): {json.dumps(sweep)}")
+    return ms, dev, C, lat
+
+
 def phase_attention_step():
     import torch
     from tacotron_multispeaker_torch.ops import attention_step as ast
-    B, L, A, D = 32, 192, 256, 320
     # (alignments, context) absolute.  f32: the same arithmetic in another
     # sum order.  bf16: both sides round act after each add and after tanh;
     # CUDA's tanhf and torch's tanh may differ by an f32 ulp, which can flip
@@ -1496,34 +1592,67 @@ def phase_attention_step():
     # ~|v|*2^-8 -> alignments 1e-3, context 1e-2 (|memory| ~ 3)
     tol = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-3, 1e-2)}
     worst = 0.0
-    for loc in (True, False):
-        for dtype in (torch.float32, torch.bfloat16):
-            args = _attention_case(B, L, A, D, dtype, seed=31 + loc, loc=loc)
-            ctx, al = ast.attention_step(*args)
-            ctx_r, al_r = ast.attention_step_reference(*args)
-            torch.cuda.synchronize()
-            e_al = (al - al_r).abs().max().item()
-            e_ctx = (ctx - ctx_r).abs().max().item()
-            ta, tc = tol[dtype]
-            log(f"[attention_step] B={B} L={L} A={A} D={D} {str(dtype)[6:]} "
-                f"{'with' if loc else 'without'} location term: align {e_al:.3e} (tol "
-                f"{ta:.0e}) ctx {e_ctx:.3e} (tol {tc:.0e})")
-            if not (e_al <= ta and e_ctx <= tc and torch.all(al[~args[4]] == 0.0)):
-                raise AssertionError("attention_step disagrees with its plain version")
-            worst = max(worst, e_al, e_ctx)
-    args = _attention_case(B, L, A, D, torch.bfloat16, seed=33)
-    ms = cuda_time_ms(lambda: ast.attention_step(*args), reps=50)
+    # the serving shapes (B=1 L=96, 192; B=32 L=192), one position, ragged
+    # B=3 L=13, and rows that are not 16-byte multiples (A=100, D=72: the
+    # direct route); each at the plan's C and every C the card takes; row 1
+    # of B > 1 fully masked
+    cases = [(1, 1, 256, 320), (1, 96, 256, 320), (1, 192, 256, 320), (3, 13, 256, 320),
+             (32, 192, 256, 320), (3, 13, 100, 72), (3, 96, 100, 72)]
+    for ci, (B, L, A, D) in enumerate(cases):
+        for loc in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = list(_attention_case(B, L, A, D, dtype, seed=31 + ci, loc=loc))
+                if B > 1:
+                    args[4][1] = False
+                ref = ast.attention_step_reference(*args)
+                for C in _attention_sizes(_attention_counts(args, False), L):
+                    before = ast.direct_launches
+                    ctx, al = ast.attention_step(*args, cluster=C)
+                    torch.cuda.synchronize()
+                    ran, route, _ = ast.last_plan
+                    e_al = (al - ref[1]).abs().max().item()
+                    e_ctx = (ctx - ref[0]).abs().max().item()
+                    ta, tc = tol[dtype]
+                    counted = ast.direct_launches - before == (route == "direct")
+                    same = _attention_repeatable(ast.attention_step, args, ran, (ctx, al))
+                    log(f"[attention_step] B={B} L={L} A={A} D={D} {str(dtype)[6:]} "
+                        f"{'with' if loc else 'without'} location term, "
+                        f"{'plan' if C is None else 'forced'} C={ran} ({route}): align "
+                        f"{e_al:.3e} (tol {ta:.0e}) ctx {e_ctx:.3e} (tol {tc:.0e}); "
+                        f"{ATTENTION_REPEATS} more launches bit for bit: {same}")
+                    masked_zero = bool(torch.all(al[~args[4]] == 0.0))
+                    if B > 1:
+                        masked_zero &= bool(torch.all(ctx[1] == 0.0))
+                    if not (e_al <= ta and e_ctx <= tc and masked_zero and counted and same):
+                        raise AssertionError(f"attention_step disagrees with its plain version "
+                                             f"(B={B} L={L} A={A} D={D} C={ran})")
+                    worst = max(worst, e_al, e_ctx)
+    probe = _latency_probe((16, 8, 4, 2, 1))
+    timed = {}
+    for label, (B, L) in (("B=32 L=192", (32, 192)), ("B=1 L=96", (1, 96)),
+                          ("B=1 L=192", (1, 192))):
+        args = _attention_case(B, L, 256, 320, torch.bfloat16, seed=33 + B + L)
+        # (args, call ms, device ms, C, latency bound ms)
+        timed[label] = (args, *_attention_timing(f"attention_step {label} A=256 D=320 bf16, "
+                                                 f"location term", ast.attention_step,
+                                                 args, probe))
+    args, ms, dev, C, lat = timed["B=32 L=192"]
+    B, L, _ = args[0].shape
     plain_ms = cuda_time_ms(lambda: ast.attention_step_reference(*args), reps=10)
-    bound = _bound_ms(_nbytes(*args) + B * (D + L) * 4)
-    args1 = _attention_case(1, 96, A, D, torch.bfloat16, seed=34)
-    ms1 = cuda_time_ms(lambda: ast.attention_step(*args1), reps=50)
-    log(f"[attention_step] B={B} L={L} A={A} D={D} bf16 with location term: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
-        f"B=1 L=96: kernel {ms1:.4f} ms")
+    bound = _attention_bound_ms(args, B * (args[3].shape[-1] + L))
+    log(f"[attention_step] B=32 L=192 A=256 D=320 bf16 with location term: plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "shape": f"B={B} L={L} A={A} D={D} bf16, location term",
+            "bound_by": bound[1], "ms_device": dev, "cluster": C, "bound_latency_ms": lat,
+            "latency_share": lat / dev, "ms_b1": timed["B=1 L=96"][1],
+            "ms_device_b1": timed["B=1 L=96"][2], "cluster_b1": timed["B=1 L=96"][3],
+            "ms_device_b1_l192": timed["B=1 L=192"][2],
+            "design": "a row over a cluster of C CTAs split along L; slabs by bulk copy; "
+                      "(m_k, s_k) and the context exchanged over DSMEM",
+            "shape": "B=32 L=192 A=256 D=320 bf16, location term (ms: a call back to back; "
+                     "ms_device: a launch)",
             "error": "alignments and context absolute, f32 and bf16, with and without "
-                     "the location term"}
+                     "the location term, at the plan's C and every C"}
 
 
 def _device_ms(fn, reps, kernel):
@@ -1543,24 +1672,25 @@ def _device_ms(fn, reps, kernel):
     return sum(spans) / len(spans) / 1e3 if spans else float("nan")
 
 
-def _partial_case(B, L, A, D, dtype, seed):
-    """One L-shard of the sequence-sharded decode: rows 1 and 3 end in an
-    earlier shard (fully masked here), the others inside this one or past it."""
+def _partial_case(B, L, A, D, dtype, seed, ended=(1, 3)):
+    """One L-shard of the sequence-sharded decode: the rows in ``ended``
+    end in an earlier shard (fully masked here), the others inside this one
+    or past it."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s, sc=1.0: (torch.randn(*s, generator=g, device="cuda") * sc).to(dtype)
     lengths = torch.randint(1, 2 * L, (B,), generator=g, device="cuda")
-    lengths[[1, 3]] = 0
+    lengths[list(ended)] = 0
     mask = (torch.arange(L, device="cuda")[None, :] < lengths[:, None]).contiguous()
     return rn(B, L, A, sc=0.5), rn(B, A, sc=0.5), rn(A, sc=A ** -0.5), rn(B, L, D), mask
 
 
 def phase_attention_partial():
     """Kernel 10 at the full-width shard of ``shard_seq``: B=8, L/M = 192/4,
-    A=256, memory depth D = 256 + 128 (encoder + speaker)."""
+    A=256, memory depth D = 256 + 128 (encoder + speaker); and at other
+    shapes, each at the plan's C and every C the card takes."""
     import torch
     from tacotron_multispeaker_torch.ops import attention_step as ast
-    B, L, A, D = 8, 48, 256, 384
     # absolute, per output.  f32: the same arithmetic in another sum order.
     # bf16: an f32-ulp tanh difference may flip one bf16 rounding of act and
     # move an energy by ~|v|*2^-8 (p, m 1e-3; s sums 48 weights, 1e-2), and
@@ -1568,34 +1698,49 @@ def phase_attention_partial():
     tol = {torch.float32: {"ctx": 1e-4, "p": 1e-5, "m": 1e-5, "s": 1e-4},
            torch.bfloat16: {"ctx": 2e-2, "p": 1e-3, "m": 1e-3, "s": 1e-2}}
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        args = _partial_case(B, L, A, D, dtype, seed=41)
-        got = ast.attention_step_partial(*args)
-        ref = ast.attention_step_partial_reference(*args)
-        torch.cuda.synchronize()
-        errs = {n: (a - b).abs().max().item() for n, a, b in zip(("ctx", "p", "m", "s"), got, ref)}
-        ctx, p, m, sm = (t[[1, 3]] for t in got)
-        exact = bool((m == -1e9).all() and (sm == 0).all() and (p == 0).all()
-                     and (ctx == 0).all())
-        log(f"[attention_step_partial] B={B} L={L} A={A} D={D} {str(dtype)[6:]}: "
-            + ", ".join(f"{n} {e:.3e} (tol {tol[dtype][n]:.0e})" for n, e in errs.items())
-            + f"; fully masked rows exact: {exact}")
-        if not (exact and all(e <= tol[dtype][n] for n, e in errs.items())):
-            raise AssertionError("attention_step_partial disagrees with its plain version")
-        worst = max(worst, *errs.values())
+    cases = [(8, 48, 256, 384), (3, 13, 256, 384), (8, 1, 256, 384), (8, 48, 100, 72)]
+    for ci, (B, L, A, D) in enumerate(cases):
+        ended = (1, 3) if B > 3 else (1,)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _partial_case(B, L, A, D, dtype, seed=41 + ci, ended=ended)
+            ref = ast.attention_step_partial_reference(*args)
+            for C in _attention_sizes(_attention_counts(args, True), L):
+                got = ast.attention_step_partial(*args, cluster=C)
+                torch.cuda.synchronize()
+                ran, route, _ = ast.last_plan
+                errs = {n: (a - b).abs().max().item()
+                        for n, a, b in zip(("ctx", "p", "m", "s"), got, ref)}
+                ctx, p, m, sm = (t[list(ended)] for t in got)
+                exact = bool((m == -1e9).all() and (sm == 0).all() and (p == 0).all()
+                             and (ctx == 0).all())
+                same = _attention_repeatable(ast.attention_step_partial, args, ran, got)
+                log(f"[attention_step_partial] B={B} L={L} A={A} D={D} {str(dtype)[6:]} "
+                    f"{'plan' if C is None else 'forced'} C={ran} ({route}): "
+                    + ", ".join(f"{n} {e:.3e} (tol {tol[dtype][n]:.0e})" for n, e in errs.items())
+                    + f"; fully masked rows exact: {exact}; {ATTENTION_REPEATS} more launches "
+                    f"bit for bit: {same}")
+                if not (exact and same and all(e <= tol[dtype][n] for n, e in errs.items())):
+                    raise AssertionError(f"attention_step_partial disagrees with its plain "
+                                         f"version (B={B} L={L} A={A} D={D} C={ran})")
+                worst = max(worst, *errs.values())
+    B, L, A, D = 8, 48, 256, 384
     args = _partial_case(B, L, A, D, torch.float32, seed=42)     # the path's dtype
-    ms = cuda_time_ms(lambda: ast.attention_step_partial(*args), reps=200)
+    probe = _latency_probe((16, 8, 4, 2, 1))
+    ms, dev, C, lat = _attention_timing(f"attention_step_partial B={B} L={L} A={A} D={D} f32",
+                                        ast.attention_step_partial, args, probe, reps=200)
     plain_ms = cuda_time_ms(lambda: ast.attention_step_partial_reference(*args), reps=50)
-    device_ms = _device_ms(lambda: ast.attention_step_partial(*args), 100, "attention_step")
-    out_bytes = B * (D + L + 2) * 4
-    bound = _bound_ms(_nbytes(*args) + out_bytes, f32_flops=B * L * (3 * A + 2 * D))
-    log(f"[attention_step_partial] B={B} L={L} A={A} D={D} f32: kernel {ms:.4f} ms a call "
-        f"back to back (the wrapper's host time bounds it), {device_ms:.4f} ms of device "
-        f"time a launch (profiler); plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms "
-        f"({bound[1]})")
+    bound = _attention_bound_ms(args, B * (D + L + 2))
+    log(f"[attention_step_partial] B={B} L={L} A={A} D={D} f32: plain {plain_ms:.4f} ms, "
+        f"bound {bound[0]:.6f} ms ({bound[1]})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "shape": f"B={B} L={L} A={A} D={D} f32 (one of 4 L-shards)",
-            "error": "ctx_u, p_u, m, s absolute, f32 and bf16, fully masked rows exact"}
+            "bound_by": bound[1], "ms_device": dev, "cluster": C, "bound_latency_ms": lat,
+            "latency_share": lat / dev,
+            "design": "kernel 9's cluster kernel without the location term or the "
+                      "normalisation",
+            "shape": f"B={B} L={L} A={A} D={D} f32 (one of 4 L-shards; ms: a call back to "
+                     f"back; ms_device: a launch)",
+            "error": "ctx_u, p_u, m, s absolute, f32 and bf16, fully masked rows exact, at "
+                     "the plan's C and every C"}
 
 
 def _window(n_fft=2048, win_length=1102):
@@ -2004,7 +2149,8 @@ TRAIN_LAUNCHES = {"bigru_scan": 2, "bigru_scan_fma": 0, "decoder_loop": 0,
                   "teacher_decoder_fwd": 1, "dkeys": 1, "teacher_decoder_bwd": 1,
                   "teacher_decoder_bwd_remat": 1,
                   "wgrad": 3, "conv_bank": 0, "attention_step": 0,
-                  "attention_step_partial": 0, "overlap_add": 0, "gl_iteration": 0}
+                  "attention_step_partial": 0, "attention_step_direct": 0,
+                  "attention_step_partial_direct": 0, "overlap_add": 0, "gl_iteration": 0}
 
 
 def phase_train():
@@ -2774,10 +2920,15 @@ def main() -> int:
          **{k: v for k, v in kern[name].items()
             if k in ("bound_all_taps_ms", "bound_full_frame_ms", "cublas_route_ms",
                      "bound_latency_ms", "cluster", "ms_b1", "ms_pod", "ms_remat",
-                     "ms_scan", "ms_device", "ms_fma", "latency_share", "design", "error")},
+                     "ms_scan", "ms_device", "ms_fma", "latency_share", "design", "error",
+                     "ms_device_b1", "cluster_b1", "ms_device_b1_l192")},
          **({} if f"{name}_fma" not in launches["train"] else {"fma_route_launches_by_path": {
              p: launches[p][f"{name}_fma"] for p in (*PATHS, "train", "gru", "train_loop",
                                                       *SHARD_PATHS)}}),
+         **({} if f"{name}_direct" not in launches["train"] else {
+             "direct_route_launches_by_path": {
+                 p: launches[p][f"{name}_direct"] for p in (*PATHS, "train", "gru",
+                                                             "train_loop", *SHARD_PATHS)}}),
          "shape": kern[name]["shape"]}
         for name, (src, replaces, path) in KERNEL_META.items()]}
     log(smi)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of one checkout of the port, for an A/B in turns.
 
-    python3 gl_ab.py DIR [build] [--mode gl|decoder|teacher|teacher_fwd|gru_bwd|gru_fwd]
+    python3 gl_ab.py DIR [build] [--mode gl|decoder|teacher|teacher_fwd|gru_bwd|gru_fwd|attention]
 
 Runs the port of the checkout in DIR (any commit of it) on inputs made by
 this checkout's ``chip_smoke.py`` and prints one ``AB`` line.  ``build``
@@ -49,6 +49,15 @@ builds every kernel library of DIR first.
   path, a B=1 request at input bucket 192 (the median of three host-clock
   runs and one more run's device-busy ms), and the bare train step as for
   ``teacher``.
+- ``attention``: the attention step (kernel 9, ``ops.attention_step``) at
+  B=32 L=192 and B=1 L=96 (A=256 D=320 bf16, location term) and its
+  per-shard partial (kernel 10) at B=8 L=48 A=256 D=384 f32 (the inputs
+  of ``phase_attention_step`` / ``phase_attention_partial``), each call's
+  time back to back (CUDA events; the wrapper's host time bounds it) and
+  its launch's device time (profiler; the cluster size where the checkout
+  has one); then ``Synthesizer`` on the ``serve_location`` path: a B=1
+  request at input buckets 96 and 192 and a B=32 batch at 192, each the
+  median of three host-clock runs and one more run's device-busy ms.
 
 To compare two versions on one card, run it in turns in one command:
 parent, change, change, parent.  Needs a CUDA device.
@@ -215,6 +224,41 @@ def _gru_fwd(c, torch):
     return " | ".join(parts)
 
 
+def _attention(c, torch):
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.ops import attention_step as ast
+    from tacotron_multispeaker_torch.synthesizer import Synthesizer
+    parts = []
+    for B, L in ((32, 192), (1, 96)):
+        args = c._attention_case(B, L, 256, 320, torch.bfloat16, seed=33 + B + L)
+        run = lambda: ast.attention_step(*args)  # noqa: E731
+        ms = c.cuda_time_ms(run, reps=50)
+        dev = c._launch_device_ms(run, "attention_step", reps=20)
+        plan = getattr(ast, "last_plan", None)
+        parts.append(f"kernel 9 B={B} L={L} {ms:.4f} ms device {dev:.4f}"
+                     + (f" (C={plan[0]})" if plan else ""))
+    args = c._partial_case(8, 48, 256, 384, torch.float32, seed=42)
+    run = lambda: ast.attention_step_partial(*args)  # noqa: E731
+    ms = c.cuda_time_ms(run, reps=200)
+    dev = c._launch_device_ms(run, "attention_step", reps=20)
+    parts.append(f"kernel 10 B=8 L=48 f32 {ms:.4f} ms device {dev:.4f}")
+    del args
+    syn = Synthesizer(get_config("multispeaker_vctk", c.PATHS["serve_location"]), seed=0)
+    syn.warmup()
+    for bucket, (text, spk) in ((96, c.SERVE_TEXTS[1]), (192, c.SERVE_TEXTS[2])):
+        one = lambda: syn.synthesize_batch([text], [spk], pad_to=bucket)  # noqa: E731
+        one()
+        parts.append(f"serve_location B=1 bucket {bucket} {_host_ms(torch, one):.2f} ms busy "
+                     f"{_busy_ms(torch, one):.2f}")
+    batch = [c.SERVE_TEXTS[i % len(c.SERVE_TEXTS)][0] for i in range(32)]
+    spks = [(7 * i) % syn.cfg.model.num_speakers for i in range(32)]
+    many = lambda: syn.synthesize_batch(batch, spks, pad_to=192)  # noqa: E731
+    many()
+    parts.append(f"serve_location B=32 {_host_ms(torch, many):.2f} ms busy "
+                 f"{_busy_ms(torch, many):.2f}")
+    return " | ".join(parts)
+
+
 def main() -> int:
     import torch
     import chip_smoke as c          # this checkout's; it imports the port lazily
@@ -222,7 +266,7 @@ def main() -> int:
     ap.add_argument("dir")
     ap.add_argument("build", nargs="?", choices=["build"])
     ap.add_argument("--mode", choices=["gl", "decoder", "teacher", "teacher_fwd", "gru_bwd",
-                                       "gru_fwd"], default="gl")
+                                       "gru_fwd", "attention"], default="gl")
     opts = ap.parse_args()
     root = os.path.abspath(opts.dir)
     os.chdir(root)
@@ -237,7 +281,7 @@ def main() -> int:
         cuda_build.build_all(KERNELS)
     line = {"gl": _gl, "decoder": _decoder, "teacher": _teacher,
             "teacher_fwd": _teacher_fwd, "gru_bwd": _gru_bwd,
-            "gru_fwd": _gru_fwd}[opts.mode](c, torch)
+            "gru_fwd": _gru_fwd, "attention": _attention}[opts.mode](c, torch)
     print(f"AB {opts.mode} {opts.dir}: {line}", flush=True)
     return 0
 

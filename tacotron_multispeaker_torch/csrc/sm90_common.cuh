@@ -9,6 +9,8 @@
 // * tma_load_3d: one thread copies a box of a 3-D tensor map into shared
 //   memory and the copy completes the transaction count of an mbarrier.
 //   Coordinates are signed; elements outside the tensor arrive as zeros.
+// * bulk_load: the same for one contiguous 1-D range (cp.async.bulk), no
+//   tensor map.
 // * smem_desc: the 64-bit wgmma descriptor of a tile in shared memory
 //   (start >> 4, leading and stride byte offsets >> 4, swizzle mode).
 //   K-major with swizzle: rows of the swizzle width, the stride byte offset
@@ -24,8 +26,9 @@
 // * Host side: make_map, a 3-D bf16 TMA tensor map (cuTensorMapEncodeTiled,
 //   fetched through the runtime, so a library needs no -lcuda).
 //
-// csrc/conv_bank.cu, csrc/gl_iteration.cu (their bf16 paths) and
-// csrc/teacher_decoder_bwd.cu (its bf16 prologue) include it.
+// csrc/conv_bank.cu, csrc/gl_iteration.cu (their bf16 paths),
+// csrc/teacher_decoder_bwd.cu (its bf16 prologue) and csrc/attention_step.cu
+// (its slabs, by bulk_load) include it.
 
 #pragma once
 
@@ -80,6 +83,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One thread copies ``bytes`` contiguous bytes of global memory into this
+// CTA's shared memory; the copy completes that many bytes of an mbarrier's
+// transaction count.  Both addresses and the size are multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

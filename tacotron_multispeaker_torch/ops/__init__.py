@@ -17,16 +17,19 @@ integers count the kernel launches.
 * :mod:`.teacher_decoder` — the teacher-forced decoder scan: forward
   (``_teacher_decoder_fwd_pallas``), backward (``_teacher_decoder_bwd_pallas``),
   d_keys (``_dkeys_pallas``) and the autograd Function ``TeacherDecoder``.
-* :mod:`.cluster_plan` — the cluster size of the two kernels that run a
-  batch row on a thread-block cluster (the decoder loop, the teacher-forced
-  forward).
+* :mod:`.cluster_plan` — the cluster size of the kernels that run a batch
+  row on a thread-block cluster (the decoder loop, the teacher-forced
+  forward, the attention step).
 * :mod:`.wgrad` — the weight-gradient reduction of both backward kernels
   (the per-step ``dot_tn`` sums inside the two Pallas backward kernels).
 * :mod:`.conv_bank` — ``conv_bank``, the CBHG conv bank as one product
   (``conv_bank_pallas``; ``parallel.use_pallas``, inference only).
 * :mod:`.attention_step` — ``attention_step``, one additive-attention step
   with an optional location term (``attention_step_pallas``; the per-step
-  decode under ``parallel.use_pallas``).
+  decode under ``parallel.use_pallas``), and ``attention_step_partial``,
+  its per-shard half (``attention_step_partial``; the sequence-sharded
+  decode): one kernel, a batch row over a thread-block cluster split along
+  L.
 * :mod:`.overlap_add` — the plain static-shift overlap-add of the
   Griffin-Lim loop, and ``overlap_add``, the OLA kernel
   (``overlap_add_pallas``; ``dft_f32``/``dft_hi`` under

@@ -838,6 +838,79 @@ def test_attention_step_kernel_matches_plain_on_card(cuda, dtype, tol_al, tol_ct
     assert (ctx - ctx_r).abs().max().item() <= tol_ctx
 
 
+def _attention_sizes(counts, L):
+    """None (the plan's C) and every C the card holds at these widths."""
+    return [None] + [C for C in tas.CLUSTER_SIZES if C <= L and counts[C] > 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol_al,tol_ctx", [(torch.float32, 1e-6, 1e-5),
+                                                  (torch.bfloat16, 1e-3, 1e-2)])
+@pytest.mark.parametrize("loc", [False, True])
+@pytest.mark.parametrize("B,L,A,D", [(1, 1, 256, 320), (1, 96, 256, 320), (3, 13, 256, 320),
+                                     (32, 192, 256, 320), (1, 192, 256, 320),
+                                     (3, 13, 100, 72), (3, 96, 100, 72)])
+def test_attention_step_kernel_matches_plain_at_every_cluster_size_on_card(
+        cuda, dtype, tol_al, tol_ctx, loc, B, L, A, D):
+    # each batch row over a cluster of C CTAs split along L, at the plan's C
+    # and at every C the card takes; ragged rows and (B > 1) a fully masked
+    # one.  A=100, D=72 bf16 rows are not 16-byte multiples: the direct
+    # route.  Tolerances as above
+    rs = np.random.RandomState(19 + B + L)
+    args = _card(attention_case(rs, B, L, A, D, loc), cuda, dtype)
+    if B > 1:
+        args[4][1] = False
+    args[4] = args[4].bool()
+    ref = tas.attention_step_reference(*args)
+    esize = args[0].element_size()
+    aligned = tas.rows_aligned(A, D, esize)
+    counts = tas.cluster_counts(L, A, D, int(dtype == torch.bfloat16), loc, 0, aligned,
+                                args[0].device)
+    for C in _attention_sizes(counts, L):
+        before = (tas.launches, tas.direct_launches)
+        ctx, al = tas.attention_step(*args, cluster=C)
+        torch.cuda.synchronize()
+        ran, route, _ = tas.last_plan
+        staged = tas.staged_route(L, A, D, ran, esize, loc, aligned)
+        assert route == ("staged" if staged else "direct") and (C is None or ran == C)
+        assert (tas.launches, tas.direct_launches) == (before[0] + 1, before[1] + (not staged))
+        assert torch.all(al[~args[4]] == 0.0), C
+        assert (al - ref[1]).abs().max().item() <= tol_al, C
+        assert (ctx - ref[0]).abs().max().item() <= tol_ctx, C
+        if B > 1:
+            assert torch.all(ctx[1] == 0.0) and torch.all(al[1] == 0.0), C
+        _assert_repeatable(tas.attention_step, args, ran, (ctx, al))
+
+
+def _assert_repeatable(fn, args, C, first, n=10):
+    """n more launches at cluster C give the first one's outputs bit for
+    bit: the kernel's sums run in a fixed order, so a launch that differs
+    shows a race between its warps or CTAs."""
+    for i in range(n):
+        got = fn(*args, cluster=C)
+        assert all(torch.equal(a, b) for a, b in zip(got, first)), (C, i)
+
+
+@pytest.mark.gpu
+def test_attention_step_smem_mirror_and_cluster_checks_on_card(cuda):
+    # the Python mirror of a CTA's shared memory is the kernel's own count,
+    # on both routes at every C; a C the kernel does not take raises
+    for L, A, D, esize, loc in ((192, 256, 320, 2, True), (48, 256, 384, 4, False),
+                                (13, 100, 72, 2, True), (1, 8, 4, 4, False)):
+        for C in tas.CLUSTER_SIZES:
+            for staged in (False, True):
+                assert tas.smem_bytes(L, A, D, C, esize, loc, staged) == tas.kernel_smem_bytes(
+                    L, A, D, C, esize, loc, staged), (L, A, D, C, staged)
+    rs = np.random.RandomState(20)
+    args = _card(attention_case(rs, 2, 13, 256, 320, True), cuda, torch.bfloat16)
+    args[4] = args[4].bool()
+    before = tas.launches
+    for C in (3, 32, 16):                   # not a cluster size; past L=13
+        with pytest.raises(ValueError, match="no cluster"):
+            tas.attention_step(*args, cluster=C)
+    assert tas.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_overlap_add_kernel_matches_plain_on_card(cuda, dtype):
@@ -905,12 +978,43 @@ def test_gl_iteration_bf16_plan(cuda):
     assert plan["support"] == tgl.window_support(win) == (448, 1600)
 
 
+def _attention_limit_L(A, D):
+    """The longest L the attention kernel takes at f32 widths A, D: a CTA of
+    16 holds 4 + 2A + ceil(L/16) + 32 + 16 * ceil(D/16) floats (the first
+    4: the exchanges' two mbarriers)."""
+    last = 16 * (232448 // 4 - (4 + 2 * A + 2 * 16 + 16 * -(-D // 16)))
+    assert tas.kernel_takes(last, A, D, 4, False) and not tas.kernel_takes(last + 1, A, D, 4,
+                                                                           False)
+    return last
+
+
+@pytest.mark.gpu
+def test_attention_step_runs_at_its_limit_on_card(cuda):
+    # the longest L (one row, A=8, D=4 f32, C=16 on the direct route: its
+    # slab does not fit) matches its plain version, and the first design's
+    # refused L=60000 runs (C=16, staged)
+    for L in (60000, _attention_limit_L(8, 4)):
+        rs = np.random.RandomState(21)
+        args = _card(attention_case(rs, 1, L, 8, 4, False), cuda)
+        args[4] = args[4].bool()
+        ctx, al = tas.attention_step(*args)
+        ctx_r, al_r = tas.attention_step_reference(*args)
+        torch.cuda.synchronize()
+        assert tas.last_plan[0] == 16, L
+        assert (al - al_r).abs().max().item() <= 1e-6
+        assert (ctx - ctx_r).abs().max().item() <= 1e-4      # sums of ~1e6 weights
+
+
 @pytest.mark.gpu
 def test_serve_kernels_raise_outside_their_limits_on_card(cuda):
     rs = np.random.RandomState(16)
-    keys, q, v, mem, mask, _ = _card(attention_case(rs, 1, 60000, 8, 4, False), cuda)
+    # the attention step's limit: even at C = 16 a CTA's energies (ceil(L/16)
+    # floats) with q, v and the exchange do not fit (L=60000, which the first
+    # design refused, now runs at C >= 2)
+    L = _attention_limit_L(8, 4) + 1
+    keys, q, v, mem, mask, _ = _card(attention_case(rs, 1, L, 8, 4, False), cuda)
     before = (tas.launches, tcb.launches, tgl.launches)
-    with pytest.raises(ValueError, match="shared memory"):           # (2A + L) * 4 B
+    with pytest.raises(ValueError, match="shared memory"):
         tas.attention_step(keys, q, v, mem, mask.bool())
     x, w, b = _card(conv_bank_case(rs, 1, 8, 4, 3, 2), cuda)
     with pytest.raises(RuntimeError, match="inference-only"):
@@ -1003,11 +1107,45 @@ def test_attention_step_partial_kernel_matches_plain_on_card(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, {"ctx": 1e-4, "p": 1e-5, "m": 1e-5, "s": 1e-4}),
+    (torch.bfloat16, {"ctx": 2e-2, "p": 1e-3, "m": 1e-3, "s": 1e-2})])
+@pytest.mark.parametrize("B,L,A,D", [(8, 48, 256, 384), (3, 13, 256, 384), (8, 1, 256, 384),
+                                     (32, 192, 256, 384), (8, 48, 100, 72)])
+def test_attention_step_partial_kernel_matches_plain_at_every_cluster_size_on_card(
+        cuda, dtype, tol, B, L, A, D):
+    # kernel 10 at the plan's C and every C the card takes (tolerances as
+    # above); the fully masked rows (1 and, where B > 3, 3) stay bit-exact
+    rs = np.random.RandomState(23 + B + L)
+    ended = (1, 3) if B > 3 else (1,)
+    args = _card(partial_case(rs, B, L, A, D, ended=ended), cuda, dtype)
+    args[4] = args[4].bool()
+    ref = tas.attention_step_partial_reference(*args)
+    aligned = tas.rows_aligned(A, D, args[0].element_size())
+    counts = tas.cluster_counts(L, A, D, int(dtype == torch.bfloat16), False, 1, aligned,
+                                args[0].device)
+    dead = torch.tensor(ended, device=cuda)
+    for C in _attention_sizes(counts, L):
+        got = tas.attention_step_partial(*args, cluster=C)
+        torch.cuda.synchronize()
+        assert C is None or tas.last_plan[0] == C
+        for name, a, b in zip(("ctx", "p", "m", "s"), got, ref):
+            assert (a - b).abs().max().item() <= tol[name], (name, C)
+        ctx, p, m, s = got
+        assert torch.all(m[dead] == -1e9) and torch.all(s[dead] == 0), C
+        assert torch.all(p[dead] == 0) and torch.all(ctx[dead] == 0), C
+        assert torch.all(p[~args[4]] == 0), C
+        _assert_repeatable(tas.attention_step_partial, args, tas.last_plan[0], got)
+
+
+@pytest.mark.gpu
 def test_attention_step_partial_raises_outside_its_limits_on_card(cuda):
     rs = np.random.RandomState(18)
-    keys, q, v, mem, mask = _card(partial_case(rs, 1, 60000, 8, 4, ended=()), cuda)
+    # past the longest L a cluster of 16 takes (L=60000 now runs)
+    L = _attention_limit_L(8, 4) + 1
+    keys, q, v, mem, mask = _card(partial_case(rs, 1, L, 8, 4, ended=()), cuda)
     before = tas.partial_launches
-    with pytest.raises(ValueError, match="shared memory"):           # (2A + L) * 4 B
+    with pytest.raises(ValueError, match="shared memory"):
         tas.attention_step_partial(keys, q, v, mem, mask.bool())
     with pytest.raises(ValueError, match="on cpu"):
         tas.attention_step_partial(keys[:, :4], q, v, mem[:, :4].cpu(), mask[:, :4].bool())

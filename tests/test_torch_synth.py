@@ -141,7 +141,9 @@ def _python_files():
     # the tools that import the port or chip_smoke.py
     for name in ("decoder_variants.py", "decoder_phase_clock.py", "teacher_bwd_variants.py",
                  "gru_bwd_variants.py", "gru_bwd_phase_clock.py", "gru_fwd_variants.py",
-                 "gru_fwd_phase_clock.py", "gru_fwd_sigmoid_check.py", "variant_build.py"):
+                 "gru_fwd_phase_clock.py", "gru_fwd_sigmoid_check.py", "variant_build.py",
+                 "attention_variants.py", "attention_phase_clock.py",
+                 "attention_plan_sweep.py"):
         yield os.path.join(REPO, "tools", name)
 
 
