@@ -35,7 +35,11 @@ Phases (no failure is caught; any exception exits non-zero):
    plan's cluster size and every size the card takes, on both routes
    (staged; direct for rows that are not 16-byte multiples), each launch
    repeated bit for bit (a race shows as a launch that differs), and timed
-   at each C by the device time of a launch beside its latency bound.
+   at each C by the device time of a launch beside its latency bound.  The
+   overlap-add (kernel 12) is held in both modes (prewindowed support
+   frames, windowed full frames) at both widths, each mode timed at B=32
+   and B=1 (a launch's device time) beside ``fold`` + a division, and the
+   ``serve_location`` Griffin-Lim is held against its plain route.
 4. Checks ``generate`` at full-width ``multispeaker_vctk``, dropout off: in
    float32 on the card against the plain path on the CPU (the default and
    the location-attention path), and in bfloat16 (the serving precision)
@@ -1749,36 +1753,137 @@ def _window(n_fft=2048, win_length=1102):
     return torch.from_numpy(hann_window(win_length, n_fft)).cuda()
 
 
-def phase_overlap_add():
+def _ola_case(B, F, Wn, prewindowed, dtype, seed):
+    """(frames [B, F, Wn] in ``dtype``, window [Wn]) on the card at hop 275:
+    the serving window (its 1102-sample support, or centred in 2048 zeros);
+    prewindowed frames are randn × window, as the inverse DFT product gives
+    them in the window-support layout."""
     import torch
+    win = _window(Wn, min(Wn, 1102))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randn(B, F, Wn, generator=g, device="cuda")
+    return (frames * win if prewindowed else frames).to(dtype), win
+
+
+def _ola_library(frames, win, hop):
+    """``torch.nn.functional.fold`` of prewindowed frames (the overlap-add)
+    followed by one division by the window-square norm, which is made here
+    once, outside the call: the library yardstick of the prewindowed
+    kernel (no one call windows, overlap-adds and divides)."""
+    import torch
+    from tacotron_multispeaker_torch.ops.overlap_add import _wsq_norm
+    B, F, Wn = frames.shape
+    out_len = Wn + hop * (F - 1)
+    norm = _wsq_norm(win, F, hop)[:out_len].contiguous()
+    cols = frames.transpose(1, 2)
+    return lambda: (torch.nn.functional.fold(cols, (1, out_len), (1, Wn), stride=(1, hop))
+                    .view(B, out_len) / norm)
+
+
+OLA_MODES = {"support": (1102, True), "full": (2048, False)}   # Wn, prewindowed
+
+
+def phase_overlap_add():
+    """Kernel 12 in both modes at Griffin-Lim's geometries (hop 275, F=1000
+    frames): prewindowed 1102-sample support frames, the layout of
+    ``dft_f32``/``dft_hi`` under ``parallel.use_pallas``, and windowed
+    2048-sample frames, the TPU kernel's function; every width in both
+    modes and dtypes against the plain version, each mode timed at B=32
+    and B=1; then the ``serve_location`` Griffin-Lim against its plain
+    route."""
+    import torch
+    from tacotron_multispeaker_torch.audio.dsp import STFTParams, griffin_lim
     from tacotron_multispeaker_torch.ops import overlap_add as ola
-    B, F, n_fft, hop = 32, 1000, 2048, 275
-    win = _window()
-    g = torch.Generator(device="cuda").manual_seed(41)
-    # window, sums and norm f32 on both sides, whatever the frames' type:
-    # the <= 8 frames of a sample summed in another order -> 1e-5 of the peak
+    F, hop = 1000, 275
+    # window, sums and norm f32 on both sides whatever the frames' type, the
+    # same sums in the same order: 1e-5 of the peak (the tolerance of the
+    # first design, whose order differed); the per-sample error is printed
+    # beside it, since the edges, divided by a norm near the 1e-10 clamp,
+    # set the peak
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        frames = torch.randn(B, F, n_fft, generator=g, device="cuda").to(dtype)
-        out, ref = ola.overlap_add(frames, win, hop), ola.overlap_add_plain(frames, win, hop)
-        torch.cuda.synchronize()
-        err = _rel_err(out, ref)
-        log(f"[overlap_add] B={B} F={F} n_fft={n_fft} hop={hop} {str(dtype)[6:]} frames: "
-            f"max|kernel-plain|/max|plain| {err:.3e} (tol 1e-5)")
-        if not err <= 1e-5:
-            raise AssertionError("overlap_add disagrees with its plain version")
-        worst = max(worst, err)
-    frames = torch.randn(B, F, n_fft, generator=g, device="cuda")
-    ms = cuda_time_ms(lambda: ola.overlap_add(frames, win, hop), reps=20)
-    plain_ms = cuda_time_ms(lambda: ola.overlap_add_plain(frames, win, hop), reps=5)
-    bound = _bound_ms(_nbytes(frames, win) + B * (n_fft + hop * (F - 1)) * 4)
-    f1 = torch.randn(1, F, n_fft, generator=g, device="cuda")
-    ms1 = cuda_time_ms(lambda: ola.overlap_add(f1, win, hop), reps=20)
-    log(f"[overlap_add] B={B} F={F} n_fft={n_fft} hop={hop} f32: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}); B=1: kernel {ms1:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "shape": f"B={B} F={F} n_fft={n_fft} hop={hop} f32 frames",
-            "error": "max |kernel - plain| / max |plain|, f32 and bf16 frames"}
+    for Wn in (1102, 2048):
+        for prewindowed in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                frames, win = _ola_case(32, F, Wn, prewindowed, dtype, seed=41 + Wn)
+                out = ola.overlap_add(frames, win, hop, prewindowed=prewindowed)
+                ref = ola.overlap_add_plain(frames, win, hop, prewindowed=prewindowed)
+                torch.cuda.synchronize()
+                err = _rel_err(out, ref)
+                per = ((out - ref).abs() / (1.0 + ref.abs())).max().item()
+                unequal = int((out != ref).sum())
+                log(f"[overlap_add] B=32 F={F} Wn={Wn} hop={hop} {str(dtype)[6:]} "
+                    f"{'prewindowed' if prewindowed else 'windowed'}: max|kernel-plain|/"
+                    f"max|plain| {err:.3e} (tol 1e-5), max |d|/(1+|plain|) {per:.3e}, "
+                    f"{unequal} of {out.numel()} samples not bit-equal")
+                if not (err <= 1e-5 and per <= 1e-5 and torch.isfinite(out).all()):
+                    raise AssertionError("overlap_add disagrees with its plain version")
+                worst = max(worst, err)
+                del frames, out, ref
+    res = {}
+    for mode, (Wn, prewindowed) in OLA_MODES.items():
+        for B in (32, 1):
+            frames, win = _ola_case(B, F, Wn, prewindowed, torch.float32, seed=43 + B)
+            run = lambda: ola.overlap_add(  # noqa: E731
+                frames, win, hop, prewindowed=prewindowed)
+            ms = cuda_time_ms(run, reps=50 if B == 1 else 20)
+            dev = _launch_device_ms(run, "overlap_add", reps=20 if B == 1 else 5)
+            bound = _bound_ms(_nbytes(frames, win) + B * (Wn + hop * (F - 1)) * 4)
+            plain_ms = cuda_time_ms(lambda: ola.overlap_add_plain(
+                frames, win, hop, prewindowed=prewindowed), reps=5)
+            lib = None
+            if prewindowed:
+                fold = _ola_library(frames, win, hop)
+                lib_err = _rel_err(fold(), run())
+                if not lib_err <= 1e-5:
+                    raise AssertionError(f"fold + division disagrees with the kernel: {lib_err}")
+                lib = cuda_time_ms(fold, reps=10)
+            res[mode, B] = (ms, dev, bound, plain_ms, lib)
+            log(f"[overlap_add] {mode} B={B} F={F} Wn={Wn} hop={hop} f32 "
+                f"{'prewindowed' if prewindowed else 'windowed'}: a call back to back "
+                f"{ms:.4f} ms, device a launch {dev:.4f} ms ({bound[0] / dev:.1%} of the "
+                f"bound), bound {bound[0]:.4f} ms ({bound[1]}), plain {plain_ms:.3f} ms"
+                + ("" if lib is None else f", fold + division {lib:.4f} ms"))
+            del frames
+
+    # serve_location's Griffin-Lim (dft_f32, 60 iterations, the support
+    # layout): the kernel route against the plain one (use_pallas off),
+    # both on the card from the same magnitudes and angles.  The kernel's
+    # sums are the plain version's, so only a difference that 60 iterations
+    # carry could show: held at 1e-3 of the peak, as the card test holds the
+    # location path's waveform against the CPU
+    params = STFTParams(2048, hop, 1102)
+    g = torch.Generator(device="cuda").manual_seed(47)
+    mag = torch.randn(2, 1025, 200, generator=g, device="cuda").abs()
+    angles = (torch.rand(2, 200, 1025, generator=g, device="cuda") * 2 - 1) * math.pi
+    before = ola.launches
+    y = griffin_lim(mag, params, 60, method="dft_f32", angles=angles, use_pallas=True)
+    n_launch = ola.launches - before
+    y_ref = griffin_lim(mag, params, 60, method="dft_f32", angles=angles, use_pallas=False)
+    torch.cuda.synchronize()
+    gl_err = _rel_err(y, y_ref)
+    log(f"[overlap_add] serve_location Griffin-Lim B=2 F=200 dft_f32 60 iterations, kernel "
+        f"route vs plain route: max|d|/max|plain| {gl_err:.3e} (tol 1e-3), {n_launch} "
+        f"launches (61 expected), bit-equal: {bool(torch.equal(y, y_ref))}")
+    if not (gl_err <= 1e-3 and n_launch == 61 and torch.isfinite(y).all()):
+        raise AssertionError("serve_location Griffin-Lim: the kernel route disagrees")
+
+    ms, dev, bound, plain_ms, lib = res["support", 32]
+    full = res["full", 32]
+    return {"max_abs_err": worst, "ms": ms, "ms_device": dev, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib,
+            "library": "torch.nn.functional.fold of the prewindowed frames, then one "
+                       "division by the window-square norm (made once, outside the call)",
+            "ms_b1": res["support", 1][0], "ms_device_b1": res["support", 1][1],
+            "bound_b1_ms": res["support", 1][2][0], "library_ms_b1": res["support", 1][4],
+            "ms_full": full[0], "ms_device_full": full[1], "bound_full_frame_ms": full[2][0],
+            "plain_ms_full": full[3], "ms_device_full_b1": res["full", 1][1],
+            "design": "persistent blocks, the window staged once a block in shared memory; "
+                      "an item a 512-sample tile of a row, 2 samples a thread 256 apart, the "
+                      "frame loop unrolled to ceil(Wn/hop) with every load issued first",
+            "shape": f"B=32 F={F} Wn=1102 hop={hop} f32 prewindowed (the support layout; "
+                     f"ms: a call back to back, ms_device: a launch; *_full: Wn=2048 windowed)",
+            "error": "max |kernel - plain| / max |plain|, both modes, Wn 1102 and 2048, "
+                     "f32 and bf16 frames"}
 
 
 def _gl_case(B, F, seed, n_fft=2048, hop=275, broadband=False, win=None, frame_win=None):
@@ -2872,8 +2977,6 @@ LIBRARY_NULL = {
                       "PyTorch call computes additive (tanh) attention",
     "attention_step_partial": "no one PyTorch call computes an unnormalised additive "
                               "(tanh) attention partial with its local max and sum",
-    "overlap_add": "no one PyTorch call windows, overlap-adds and divides by the "
-                   "window-square norm (torch.istft also runs the inverse FFT)",
     "gl_iteration": "no one PyTorch call runs Griffin-Lim iterations (cublas_route_ms: the "
                     "default route's several calls, for comparison)",
 }
@@ -2921,7 +3024,9 @@ def main() -> int:
             if k in ("bound_all_taps_ms", "bound_full_frame_ms", "cublas_route_ms",
                      "bound_latency_ms", "cluster", "ms_b1", "ms_pod", "ms_remat",
                      "ms_scan", "ms_device", "ms_fma", "latency_share", "design", "error",
-                     "ms_device_b1", "cluster_b1", "ms_device_b1_l192")},
+                     "ms_device_b1", "cluster_b1", "ms_device_b1_l192", "library",
+                     "bound_b1_ms", "library_ms_b1", "ms_full", "ms_device_full",
+                     "plain_ms_full", "ms_device_full_b1")},
          **({} if f"{name}_fma" not in launches["train"] else {"fma_route_launches_by_path": {
              p: launches[p][f"{name}_fma"] for p in (*PATHS, "train", "gru", "train_loop",
                                                       *SHARD_PATHS)}}),

@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Time one kernel of one checkout of the port, for an A/B in turns.
 
-    python3 gl_ab.py DIR [build] [--mode gl|decoder|teacher|teacher_fwd|gru_bwd|gru_fwd|attention]
+    python3 gl_ab.py DIR [build] [--mode MODE]
+
+MODE is one of gl, decoder, teacher, teacher_fwd, gru_bwd, gru_fwd,
+attention and ola.
 
 Runs the port of the checkout in DIR (any commit of it) on inputs made by
 this checkout's ``chip_smoke.py`` and prints one ``AB`` line.  ``build``
@@ -58,6 +61,12 @@ builds every kernel library of DIR first.
   has one); then ``Synthesizer`` on the ``serve_location`` path: a B=1
   request at input buckets 96 and 192 and a B=32 batch at 192, each the
   median of three host-clock runs and one more run's device-busy ms.
+- ``ola``: the overlap-add (kernel 12, ``ops.overlap_add.overlap_add``) at
+  F=1000 hop 275 f32 (the inputs of ``phase_overlap_add``): windowed
+  2048-sample frames and, where the checkout's wrapper takes
+  ``prewindowed``, prewindowed 1102-sample support frames, each at B=32 and
+  B=1: the call's time back to back (CUDA events) and a launch's device
+  time (profiler); then ``serve_location`` as for ``attention``.
 
 To compare two versions on one card, run it in turns in one command:
 parent, change, change, parent.  Needs a CUDA device.
@@ -225,9 +234,7 @@ def _gru_fwd(c, torch):
 
 
 def _attention(c, torch):
-    from tacotron_multispeaker_torch.config import get_config
     from tacotron_multispeaker_torch.ops import attention_step as ast
-    from tacotron_multispeaker_torch.synthesizer import Synthesizer
     parts = []
     for B, L in ((32, 192), (1, 96)):
         args = c._attention_case(B, L, 256, 320, torch.bfloat16, seed=33 + B + L)
@@ -243,6 +250,16 @@ def _attention(c, torch):
     dev = c._launch_device_ms(run, "attention_step", reps=20)
     parts.append(f"kernel 10 B=8 L=48 f32 {ms:.4f} ms device {dev:.4f}")
     del args
+    return " | ".join(parts + _serve_location(c, torch))
+
+
+def _serve_location(c, torch):
+    """``Synthesizer`` on the ``serve_location`` path: a B=1 request at input
+    buckets 96 and 192 and a B=32 batch at 192, each the median of three
+    host-clock runs and one more run's device-busy ms."""
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.synthesizer import Synthesizer
+    parts = []
     syn = Synthesizer(get_config("multispeaker_vctk", c.PATHS["serve_location"]), seed=0)
     syn.warmup()
     for bucket, (text, spk) in ((96, c.SERVE_TEXTS[1]), (192, c.SERVE_TEXTS[2])):
@@ -256,7 +273,26 @@ def _attention(c, torch):
     many()
     parts.append(f"serve_location B=32 {_host_ms(torch, many):.2f} ms busy "
                  f"{_busy_ms(torch, many):.2f}")
-    return " | ".join(parts)
+    return parts
+
+
+def _ola(c, torch):
+    import inspect
+    from tacotron_multispeaker_torch.ops import overlap_add as ola
+    support = "prewindowed" in inspect.signature(ola.overlap_add).parameters
+    parts = []
+    for mode, (Wn, prewindowed) in c.OLA_MODES.items():
+        if prewindowed and not support:
+            continue
+        for B in (32, 1):
+            frames, win = c._ola_case(B, 1000, Wn, prewindowed, torch.float32, seed=43 + B)
+            kw = {"prewindowed": True} if prewindowed else {}
+            run = lambda: ola.overlap_add(frames, win, 275, **kw)  # noqa: E731
+            ms = c.cuda_time_ms(run, reps=50 if B == 1 else 20)
+            dev = c._launch_device_ms(run, "overlap_add", reps=20 if B == 1 else 5)
+            parts.append(f"kernel 12 {mode} B={B} {ms:.4f} ms device {dev:.4f}")
+            del frames
+    return " | ".join(parts + _serve_location(c, torch))
 
 
 def main() -> int:
@@ -266,7 +302,7 @@ def main() -> int:
     ap.add_argument("dir")
     ap.add_argument("build", nargs="?", choices=["build"])
     ap.add_argument("--mode", choices=["gl", "decoder", "teacher", "teacher_fwd", "gru_bwd",
-                                       "gru_fwd", "attention"], default="gl")
+                                       "gru_fwd", "attention", "ola"], default="gl")
     opts = ap.parse_args()
     root = os.path.abspath(opts.dir)
     os.chdir(root)
@@ -281,7 +317,7 @@ def main() -> int:
         cuda_build.build_all(KERNELS)
     line = {"gl": _gl, "decoder": _decoder, "teacher": _teacher,
             "teacher_fwd": _teacher_fwd, "gru_bwd": _gru_bwd,
-            "gru_fwd": _gru_fwd, "attention": _attention}[opts.mode](c, torch)
+            "gru_fwd": _gru_fwd, "attention": _attention, "ola": _ola}[opts.mode](c, torch)
     print(f"AB {opts.mode} {opts.dir}: {line}", flush=True)
     return 0
 

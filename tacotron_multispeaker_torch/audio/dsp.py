@@ -18,12 +18,14 @@ runs as DFT matrix products (methods
   matrices and the synthesis window into the inverse ones (exact: the
   dropped columns multiply zeros).
 
-``use_pallas`` (the JAX package's ``parallel.use_pallas``) takes the
-full-frame layout whatever the window, and routes as the JAX package does:
-``dft_bf16`` and ``dft_mix`` run their fast bf16 iterations through the
-Griffin-Lim kernel (ops/gl_iteration.py) and keep the plain overlap-adds;
-``dft_f32`` and ``dft_hi`` run every overlap-add through the OLA kernel
-(ops/overlap_add.py).
+``use_pallas`` (the JAX package's ``parallel.use_pallas``) routes as the
+JAX package does: ``dft_bf16`` and ``dft_mix`` run their fast bf16
+iterations through the Griffin-Lim kernel (ops/gl_iteration.py), which takes
+n_fft-sample frames, so they keep the full-frame layout and the plain
+overlap-adds; ``dft_f32`` and ``dft_hi`` run every overlap-add through the
+OLA kernel (ops/overlap_add.py).  Unlike the JAX package, which takes the
+full-frame layout for all four, they keep the window-support layout, and the
+kernel takes the frames prewindowed: the same sums up to their order.
 
 The ``fft`` and ``ct_*`` methods stand in ROADMAP.md.
 """
@@ -268,7 +270,7 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
     matmuls here: PyTorch has no bf16×3 mode, and float32 is the more
     accurate of the two.
 
-    ``use_pallas``: the full-frame layout and the kernels (module docstring).
+    ``use_pallas``: the kernels and their layouts (module docstring).
     """
     algo, _, prec = method.partition("_")
     if algo != "dft" or prec not in ("f32", "hi", "bf16", "mix"):
@@ -279,8 +281,8 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
     mom = momentum / (1.0 + momentum) if momentum > 0.0 else 0.0
     dtype = torch.bfloat16 if prec in ("bf16", "mix") else torch.float32
     n_fft, hop = params.n_fft, params.hop_length
-    windowed = not use_pallas and params.win_length < n_fft
     fuse_fast = use_pallas and prec in ("bf16", "mix")
+    windowed = params.win_length < n_fft and not fuse_fast
     ola_kernel = use_pallas and not fuse_fast
     Wn = params.win_length if windowed else n_fft
     lpad = (n_fft - Wn) // 2
@@ -305,7 +307,7 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
         _, _, iC, iS = by_dtype[dt]
         frames = (re.to(dt) @ iC + im.to(dt) @ iS).to(dt).reshape(-1, nF, Wn)
         if ola_kernel:
-            return ola_ops.overlap_add(frames, window, hop)
+            return ola_ops.overlap_add(frames, window, hop, prewindowed=windowed)
         sig = overlap_add_reference(frames, window.to(dt), hop, prewindowed=windowed)
         return sig.float()                               # [prod(batch), out_len]
 

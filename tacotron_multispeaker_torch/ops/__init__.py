@@ -33,7 +33,7 @@ integers count the kernel launches.
 * :mod:`.overlap_add` — the plain static-shift overlap-add of the
   Griffin-Lim loop, and ``overlap_add``, the OLA kernel
   (``overlap_add_pallas``; ``dft_f32``/``dft_hi`` under
-  ``parallel.use_pallas``).
+  ``parallel.use_pallas``, on prewindowed window-support frames).
 * :mod:`.gl_iteration` — ``gl_fast_iterations``, every fast bf16
   Griffin-Lim iteration from one call (``gl_fast_iterations_pallas``;
   ``dft_bf16``/``dft_mix`` under ``parallel.use_pallas``).

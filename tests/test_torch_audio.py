@@ -126,13 +126,17 @@ def test_unported_griffin_lim_methods_raise():
         tdsp.griffin_lim(mag, tdsp.STFTParams(1024, 275, 1024), 2, method="fft")
 
 
-@pytest.mark.parametrize("method", ["dft_mix", "dft_bf16", "dft_f32"])
+@pytest.mark.parametrize("method", ["dft_mix", "dft_bf16", "dft_f32", "dft_hi"])
 def test_griffin_lim_use_pallas_matches_jax(method):
-    # parallel.use_pallas: the full-frame layout although win_length <
-    # n_fft, and the JAX package's kernels in interpret mode (the fused
-    # fast-iteration kernel for mix/bf16, the OLA kernel for f32) against
-    # the port's plain versions, with the same initial angles.  dft_f32:
-    # f32 products on both sides -> 1e-4 of the peak, as above.  mix/bf16:
+    # parallel.use_pallas, win_length < n_fft: the JAX package's kernels in
+    # interpret mode (the fused fast-iteration kernel for mix/bf16, the OLA
+    # kernel for f32/hi) against the port's plain versions, with the same
+    # initial angles.  mix/bf16 take the full-frame layout on both sides.
+    # f32/hi: JAX takes the full-frame layout, the port the window support
+    # (the synthesis window folded into the inverse matrices, the OLA
+    # prewindowed): the same sums up to their order, since the dropped
+    # columns multiply zeros; f32 products on both sides (JAX's HIGH is f32
+    # on the CPU) -> 1e-4 of the peak, as above.  mix/bf16:
     # both round at the same points, but a sum-order difference flips bf16
     # roundings that the phase estimate carries chaotically where |S| ~ 0:
     # mean error 1e-2 of the peak, worst sample 5e-2 (measured 3e-3 and
@@ -152,7 +156,64 @@ def test_griffin_lim_use_pallas_matches_jax(method):
     assert y_t.shape == y_j.shape == (B, hop * (F - 1))
     peak = np.abs(y_j).max()
     err = np.abs(y_t - y_j)
-    if method == "dft_f32":
+    if method in ("dft_f32", "dft_hi"):
         assert err.max() <= 1e-4 * peak
     else:
         assert err.mean() <= 1e-2 * peak and err.max() <= 5e-2 * peak, err.max() / peak
+
+
+@pytest.mark.parametrize("method", ["dft_f32", "dft_hi"])
+def test_griffin_lim_use_pallas_matches_jax_window_support(method):
+    # the port under use_pallas keeps the window-support layout that the
+    # JAX package takes without it: the same products and the same
+    # static-shift overlap-add (the OLA kernel's plain version, prewindowed,
+    # against JAX's prewindowed reference), both f32; only the matmuls' sum
+    # orders differ (measured 1.5e-6 of the peak) -> 1e-5 of the peak
+    rs = np.random.RandomState(11)
+    B, F, n_fft, hop, win = 2, 10, 256, 64, 200
+    bins = n_fft // 2 + 1
+    mag = rs.uniform(0.0, 2.0, (B, bins, F)).astype(np.float32)
+    key = jax.random.PRNGKey(4)
+    jp = jdsp.STFTParams(n_fft, hop, win)
+    y_j = np.asarray(jdsp.griffin_lim(jnp.asarray(mag), jp, 6, key, use_pallas=False,
+                                      method=method, momentum=0.99))
+    y_t = tdsp.griffin_lim(torch.from_numpy(mag), tdsp.STFTParams(n_fft, hop, win), 6,
+                           method=method, momentum=0.99, use_pallas=True,
+                           angles=torch.from_numpy(_angles(key, B, F, bins))).numpy()
+    assert y_t.shape == y_j.shape == (B, hop * (F - 1))
+    assert np.abs(y_t - y_j).max() <= 1e-5 * np.abs(y_j).max()
+
+
+@pytest.mark.parametrize("method,win,ola,gl", [
+    # window support: every overlap-add (5 iterations + the initial one)
+    # through the OLA kernel, win_length wide and prewindowed
+    ("dft_f32", 200, [(200, True)] * 6, []),
+    ("dft_hi", 200, [(200, True)] * 6, []),
+    # win_length == n_fft: the full frame, windowed in the kernel
+    ("dft_f32", 256, [(256, False)] * 6, []),
+    # the fused fast iterations take n_fft frames; their overlap-adds and
+    # the mix polish stay plain
+    ("dft_mix", 200, [], [256]),
+    ("dft_bf16", 200, [], [256]),
+])
+def test_griffin_lim_use_pallas_routes_its_layouts(monkeypatch, method, win, ola, gl):
+    calls = {"ola": [], "gl": []}
+    real_ola, real_gl = tdsp.ola_ops.overlap_add, tdsp.gl_ops.gl_fast_iterations
+
+    def spy_ola(frames, window, hop, prewindowed=False):
+        assert window.shape == (frames.shape[-1],)
+        calls["ola"].append((frames.shape[-1], prewindowed))
+        return real_ola(frames, window, hop, prewindowed=prewindowed)
+
+    def spy_gl(wf0, *args):
+        calls["gl"].append(wf0.shape[-1])
+        return real_gl(wf0, *args)
+
+    monkeypatch.setattr(tdsp.ola_ops, "overlap_add", spy_ola)
+    monkeypatch.setattr(tdsp.gl_ops, "gl_fast_iterations", spy_gl)
+    mag = torch.from_numpy(np.random.RandomState(2).uniform(0.0, 2.0, (1, 129, 6))
+                           .astype(np.float32))
+    y = tdsp.griffin_lim(mag, tdsp.STFTParams(256, 64, win), 5, method=method,
+                         momentum=0.99, use_pallas=True, generator=torch.Generator().manual_seed(0))
+    assert y.shape == (1, 64 * 5) and torch.isfinite(y).all()
+    assert calls == {"ola": ola, "gl": gl}

@@ -927,6 +927,83 @@ def test_overlap_add_kernel_matches_plain_on_card(cuda, dtype):
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+def ola_case(rs, B, F, Wn, prewindowed, dtype, device, win_length=1102):
+    """(frames [B, F, Wn] in ``dtype``, window [Wn] f32) on ``device``: the
+    serving window (Hann of ``win_length``, centred in Wn zeros when Wn is
+    larger); prewindowed frames are randn × window, as the inverse DFT
+    product gives them (bare randn would put ~1e10 at the norm's clamp)."""
+    win = hann_window(min(win_length, Wn), Wn)
+    frames = rs.randn(B, F, Wn).astype(np.float32) * (win if prewindowed else 1.0)
+    return (torch.from_numpy(frames).to(device).to(dtype), torch.from_numpy(win).to(device))
+
+
+def _ola_close(out, ref):
+    # window, sums and norm f32 on both sides, the same sums in the same
+    # order (decreasing f, unfused products): 1e-5 a sample, relative, and
+    # absolute for the O(1) interior; the edges divide by a norm near the
+    # clamp and reach ~1e5, so a peak-relative bound alone would be loose
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    assert ((out - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all(), (out - ref).abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 32])
+@pytest.mark.parametrize("F", [1, 2, 1000])
+@pytest.mark.parametrize("Wn", [1102, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prewindowed", [False, True])
+def test_overlap_add_kernel_both_modes_match_plain_on_card(cuda, prewindowed, dtype, Wn, F, B):
+    # Griffin-Lim's geometries: the 1102-sample window support and the
+    # 2048-sample frame, hop 275 dividing neither (m = 5 and 8 frames a
+    # sample); one launch a call
+    rs = np.random.RandomState(Wn + F + B)
+    frames, win = ola_case(rs, B, F, Wn, prewindowed, dtype, cuda)
+    before = tola.launches
+    out = tola.overlap_add(frames, win, 275, prewindowed=prewindowed)
+    assert tola.launches == before + 1
+    ref = tola.overlap_add_plain(frames, win, 275, prewindowed=prewindowed)
+    torch.cuda.synchronize()
+    assert out.shape == (B, Wn + 275 * (F - 1))
+    _ola_close(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Wn,hop,F", [
+    (2048, 200, 9),       # m = 11: past the unrolled builds, the loop
+    (2048, 64, 40),       # m = 32
+    (16384, 4000, 6),     # a 64 KB window: dynamic shared memory past 48 KB
+    (100, 300, 7),        # hop past the frame: gaps where the norm clamps
+    (7, 3, 5),            # narrower than a warp
+    (1102, 5000, 1),      # one frame: hop unused
+])
+@pytest.mark.parametrize("prewindowed", [False, True])
+def test_overlap_add_kernel_other_geometries_on_card(cuda, prewindowed, Wn, hop, F):
+    rs = np.random.RandomState(Wn + F)
+    frames, win = ola_case(rs, 3, F, Wn, prewindowed, torch.float32, cuda, win_length=Wn - 1)
+    out = tola.overlap_add(frames, win, hop, prewindowed=prewindowed)
+    _ola_close(out, tola.overlap_add_plain(frames, win, hop, prewindowed=prewindowed))
+
+
+@pytest.mark.gpu
+def test_overlap_add_kernel_raises_outside_its_limits_on_card(cuda):
+    frames = torch.zeros(1, 1, 2048, device=cuda)
+    win = torch.ones(2048, device=cuda)
+    lib = tola.cuda_build.library("overlap_add")
+    assert lib.overlap_add_max_window() == tola.MAX_WINDOW
+    before = tola.launches
+    with pytest.raises(ValueError, match="2\\^31"):    # B*F*Wn = 2^31 (a stride-0 view)
+        tola.overlap_add(frames.expand(2**10, 2**10, 2048), win, 2048)
+    with pytest.raises(ValueError, match="2\\^31"):    # out_len past 2^31
+        tola.overlap_add(frames.expand(1, 3, 2048), win, 2**30, prewindowed=True)
+    big = tola.MAX_WINDOW + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        tola.overlap_add(torch.zeros(1, 2, big, device=cuda), torch.ones(big, device=cuda), 4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tola.overlap_add(frames.half(), win, 275)
+    assert tola.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("window,B,F,n_iters", [
     ("no_zero", 2, 45, 3),

@@ -19,6 +19,7 @@ from tacotron_multispeaker_tpu.ops.attention_step import attention_step_pallas  
 from tacotron_multispeaker_tpu.ops.conv_bank import conv_bank_pallas  # noqa: E402
 from tacotron_multispeaker_tpu.ops.gl_iteration import gl_fast_iterations_pallas  # noqa: E402
 from tacotron_multispeaker_tpu.ops.overlap_add import overlap_add_pallas  # noqa: E402
+from tacotron_multispeaker_tpu.ops.overlap_add import overlap_add_reference  # noqa: E402
 from tacotron_multispeaker_tpu.models.modules import _bank_mask  # noqa: E402
 from tacotron_multispeaker_torch.audio.dsp import hann_window  # noqa: E402
 from tacotron_multispeaker_torch.models.modules import ConvBank  # noqa: E402
@@ -169,6 +170,37 @@ def test_overlap_add_plain_matches_pallas_interpret(dtype):
     out_j = np.asarray(overlap_add_pallas(f_j, jnp.asarray(win), 100, interpret=True))
     assert out_t.dtype == torch.float32 and out_t.shape == (3, 256 + 100 * 6)
     np.testing.assert_allclose(out_t.numpy(), out_j, atol=1e-5 * np.abs(out_j).max())
+
+
+@pytest.mark.parametrize("Wn,win_length,hop", [
+    (256, 200, 100),     # full frame: a zero-padded window, hop not dividing n_fft (m = 3)
+    (200, 200, 64),      # window support, hop not dividing it (m = 4)
+    (1102, 1102, 275),   # the serving support (50 ms at 22.05 kHz), hop 275 (m = 5)
+])
+def test_overlap_add_prewindowed_matches_pallas_interpret(Wn, win_length, hop):
+    # frames prewindowed as the inverse DFT product gives them (frames ×
+    # window): the port's plain version, which skips the multiply, against
+    # the JAX kernel, which makes it, and the JAX reference, which skips it.
+    # f32 products, sums of <= m frames in another order -> 1e-5 relative a
+    # sample.  Samples at the edges divide by a norm near the 1e-10 clamp
+    # (Hann's w[1]^2) and reach ~1e5, so the peak is no scale; interior
+    # samples are O(1), hence atol 1e-5
+    rs = np.random.RandomState(Wn + hop)
+    frames = rs.randn(2, 6, Wn).astype(np.float32)
+    win = hann_window(win_length, Wn)
+    pre = frames * win
+    out_t = tola.overlap_add_plain(torch.from_numpy(pre), torch.from_numpy(win), hop,
+                                   prewindowed=True)
+    out_w = tola.overlap_add(torch.from_numpy(pre), torch.from_numpy(win), hop,
+                             prewindowed=True)
+    out_k = np.asarray(overlap_add_pallas(jnp.asarray(frames), jnp.asarray(win), hop,
+                                          interpret=True))
+    out_r = np.asarray(overlap_add_reference(jnp.asarray(pre), jnp.asarray(win), hop,
+                                             prewindowed=True))
+    assert out_t.dtype == torch.float32 and out_t.shape == out_k.shape == (2, Wn + hop * 5)
+    assert torch.equal(out_w, out_t)                  # the wrapper's CPU route
+    np.testing.assert_allclose(out_t.numpy(), out_k, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out_t.numpy(), out_r, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("F,n_fft,hop,n_iters,mom", [
