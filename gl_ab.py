@@ -4,7 +4,7 @@
     python3 gl_ab.py DIR [build] [--mode MODE]
 
 MODE is one of gl, decoder, teacher, teacher_fwd, gru_bwd, gru_fwd,
-attention and ola.
+attention, ola and wgrad.
 
 Runs the port of the checkout in DIR (any commit of it) on inputs made by
 this checkout's ``chip_smoke.py`` and prints one ``AB`` line.  ``build``
@@ -67,6 +67,14 @@ builds every kernel library of DIR first.
   ``prewindowed``, prewindowed 1102-sample support frames, each at B=32 and
   B=1: the call's time back to back (CUDA events) and a launch's device
   time (profiler); then ``serve_location`` as for ``attention``.
+- ``wgrad``: the weight-gradient reduction (``ops.wgrad.wgrad``, bf16) at
+  the train step's three launches (``_wgrad_problems``: the teacher
+  backward's 11 products over 6400 rows, the BiGRU's 4 and the GRU's 2 over
+  32000), each call's time back to back (CUDA events) and the device time
+  of its kernels (profiler, every kernel named ``wgrad*``); kernel 7
+  (``ops.teacher_decoder.dkeys``) at S=200 B=32 L=192 A=256 bf16, its call
+  time and the device time of its two kernels; then the bare train step as
+  for ``teacher``.
 
 To compare two versions on one card, run it in turns in one command:
 parent, change, change, parent.  Needs a CUDA device.
@@ -295,6 +303,33 @@ def _ola(c, torch):
     return " | ".join(parts + _serve_location(c, torch))
 
 
+def _wgrad(c, torch):
+    from tacotron_multispeaker_torch.ops import teacher_decoder as td
+    from tacotron_multispeaker_torch.ops import wgrad as wg
+    parts = []
+    for n, kind in enumerate(("teacher", "bigru", "gru")):
+        probs = c._wgrad_problems(kind, seed=71 + n)
+        run = lambda: wg.wgrad(probs, torch.bfloat16)  # noqa: E731
+        ms = c.cuda_time_ms(run, reps=10)
+        split, _ = c._device_split_ms(run, ("wgrad",), reps=3)
+        parts.append(f"wgrad {kind} {ms:.4f} ms device {split['wgrad']:.4f}")
+    del probs
+    B, L, A, S = 32, 192, 256, 200
+    g = torch.Generator(device="cuda").manual_seed(23)
+    keys = (torch.randn(B, L, A, generator=g, device="cuda") * 0.3).to(torch.bfloat16)
+    q = torch.randn(S, B, A, generator=g, device="cuda")
+    de = torch.randn(S, B, L, generator=g, device="cuda") * 1e-2
+    v = (torch.randn(A, generator=g, device="cuda") * 0.2).to(torch.bfloat16)
+    run = lambda: td.dkeys(keys, q, de, v)  # noqa: E731
+    ms = c.cuda_time_ms(run, reps=10)
+    split, _ = c._device_split_ms(run, ("dkeys", "dv_reduce"), reps=3)
+    parts.append(f"kernel 7 S={S} B={B} L={L} A={A} {ms:.4f} ms device "
+                 f"{sum(split.values()):.4f} ({split['dkeys']:.4f} + {split['dv_reduce']:.4f})")
+    del keys, q, de
+    parts.append(_train_step(c, torch))
+    return " | ".join(parts)
+
+
 def main() -> int:
     import torch
     import chip_smoke as c          # this checkout's; it imports the port lazily
@@ -302,7 +337,8 @@ def main() -> int:
     ap.add_argument("dir")
     ap.add_argument("build", nargs="?", choices=["build"])
     ap.add_argument("--mode", choices=["gl", "decoder", "teacher", "teacher_fwd", "gru_bwd",
-                                       "gru_fwd", "attention", "ola"], default="gl")
+                                       "gru_fwd", "attention", "ola", "wgrad"],
+                    default="gl")
     opts = ap.parse_args()
     root = os.path.abspath(opts.dir)
     os.chdir(root)
@@ -317,7 +353,8 @@ def main() -> int:
         cuda_build.build_all(KERNELS)
     line = {"gl": _gl, "decoder": _decoder, "teacher": _teacher,
             "teacher_fwd": _teacher_fwd, "gru_bwd": _gru_bwd,
-            "gru_fwd": _gru_fwd, "attention": _attention, "ola": _ola}[opts.mode](c, torch)
+            "gru_fwd": _gru_fwd, "attention": _attention, "ola": _ola,
+            "wgrad": _wgrad}[opts.mode](c, torch)
     print(f"AB {opts.mode} {opts.dir}: {line}", flush=True)
     return 0
 

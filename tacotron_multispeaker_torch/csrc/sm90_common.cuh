@@ -18,7 +18,9 @@
 //   the leading byte offset steps over a swizzle-width chunk of M or N, the
 //   stride byte offset over 8 rows of K.
 // * wgmma_m64n128k16: D[64 x 128] += A[64 x 16] * B[16 x 128] for one
-//   warpgroup, A K-major, B N-major (wgmma's transpose bit for B).
+//   warpgroup, B N-major (wgmma's transpose bit for B); A K-major, or
+//   M-major with TRANS_A = 1 (the same 128-byte rows as B, one per k:
+//   csrc/wgrad.cu, whose products reduce over the rows of both factors).
 //   Thread t of the warpgroup holds d[i] = D[16 (t/32) + (t%32)/4 + 8 ((i/2)%2),
 //   8 (i/4) + 2 (t%4) + i%2].
 // * kblock: KS 16-deep wgmma steps over one stage of a TMA ring (A K-major,
@@ -27,8 +29,9 @@
 //   fetched through the runtime, so a library needs no -lcuda).
 //
 // csrc/conv_bank.cu, csrc/gl_iteration.cu (their bf16 paths),
-// csrc/teacher_decoder_bwd.cu (its bf16 prologue) and csrc/attention_step.cu
-// (its slabs, by bulk_load) include it.
+// csrc/teacher_decoder_bwd.cu and csrc/bigru_scan_bwd.cu (their bf16
+// prologues), csrc/wgrad.cu (its tensor-core route) and
+// csrc/attention_step.cu (its slabs, by bulk_load) include it.
 
 #pragma once
 
@@ -127,14 +130,16 @@ __device__ __forceinline__ void fence_operands(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
                                                  uint64_t desc_b) {
-  // scale-d is a predicate: set, the product adds to D
+  // scale-d is a predicate: set, the product adds to D; then the scales of
+  // A and B, A's transpose bit (TRANS_A) and B's (always 1: N-major)
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -144,7 +149,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A));
 }
 
 // KS 16-deep steps of one k-block for a consumer warpgroup.  a: the stage's

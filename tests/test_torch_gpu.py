@@ -304,6 +304,22 @@ def _err(a, b):
     return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1.0)
 
 
+def _wgrad_launches():
+    """The weight-gradient launches so far on each route (tensor cores, FMA)."""
+    return twg.launches, twg.fma_launches
+
+
+def _wgrad_delta(before):
+    return tuple(n - b for n, b in zip(_wgrad_launches(), before))
+
+
+def _wgrad_route(dtype):
+    """One backward's weight-gradient launch by route: bf16 takes the tensor
+    cores (the backward kernels' factors keep its 16-byte rule), f32 the FMA
+    kernel."""
+    return (1, 0) if dtype == torch.bfloat16 else (0, 1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_bigru_backward_kernel_matches_plain_on_card(cuda, dtype, tol):
@@ -318,12 +334,12 @@ def test_bigru_backward_kernel_matches_plain_on_card(cuda, dtype, tol):
     ys = tgs.bigru_scan(xg, xc, whg, whc, args[4])
     hprev = torch.cat([args[4][None].to(dtype), ys[:-1]]).contiguous()
     dys = torch.from_numpy(rs.randn(*ys.shape).astype(np.float32)).to(cuda).to(dtype)
-    before = (tgs.bwd_remat_launches, tgs.bwd_launches, twg.launches)
+    before = (tgs.bwd_remat_launches, tgs.bwd_launches, *_wgrad_launches())
     out = tgs.bigru_scan_bwd(xg, xc, hprev, dys, whg, whc)
     ref = tgs.bigru_scan_bwd_reference(xg, xc, hprev, dys, whg, whc)
     torch.cuda.synchronize()
-    assert (tgs.bwd_remat_launches - before[0], tgs.bwd_launches - before[1],
-            twg.launches - before[2]) == (1, 1, 1)
+    assert (tgs.bwd_remat_launches - before[0], tgs.bwd_launches - before[1]) == (1, 1)
+    assert _wgrad_delta(before[2:]) == _wgrad_route(dtype)
     for name, a, b in zip(("dxg", "dxc", "dwhg", "dwhc", "dh0"), out, ref):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
         assert _err(a, b) <= tol, (name, _err(a, b))
@@ -343,8 +359,8 @@ def test_gru_scan_kernels_match_plain_on_card(cuda, dtype, route, tol, B, F):
     xg, xc, whg, whc, h0 = (torch.from_numpy(a).to(cuda)
                             for a in gru_inputs(rs, T=33, B=B, F=F, scale=0.08))
     xg, xc, whg, whc = (a.to(dtype) for a in (xg, xc, whg, whc))
-    before = (tgs.gru_bwd_launches, twg.launches, tgs.launches, tgs.fma_launches,
-              tgs.gru_bwd_remat_launches)
+    before = (tgs.gru_bwd_launches, tgs.launches, tgs.fma_launches,
+              tgs.gru_bwd_remat_launches, *_wgrad_launches())
     ys = _fwd_on_card(tgs.gru_scan, (xg, xc, whg, whc, h0), route, dirs=1)
     ref = tgs.gru_scan_reference(xg, xc, whg, whc, h0)
     hprev = torch.cat([h0[None].to(dtype), ys[:-1]]).contiguous()
@@ -352,9 +368,9 @@ def test_gru_scan_kernels_match_plain_on_card(cuda, dtype, route, tol, B, F):
     out = tgs.gru_scan_bwd(xg, xc, hprev, dys, whg, whc)
     out_r = tgs.gru_scan_bwd_reference(xg, xc, hprev, dys, whg, whc)
     torch.cuda.synchronize()
-    assert (tgs.gru_bwd_launches - before[0], twg.launches - before[1],
-            tgs.launches - before[2], tgs.fma_launches - before[3],
-            tgs.gru_bwd_remat_launches - before[4]) == (1, 1, 0, 0, 1)
+    assert (tgs.gru_bwd_launches - before[0], tgs.launches - before[1],
+            tgs.fma_launches - before[2], tgs.gru_bwd_remat_launches - before[3]) == (1, 0, 0, 1)
+    assert _wgrad_delta(before[4:]) == _wgrad_route(dtype)
     assert ys.dtype == dtype and ys.shape == (33, B, F)
     assert (ys.float() - ref.float()).abs().max().item() <= (1e-5 if dtype == torch.float32
                                                              else tol)
@@ -487,12 +503,12 @@ def test_gru_module_on_card_matches_plain(cuda, reverse):
     cpu = GRU(64, 128, use_pallas=True)
     gpu = GRU(64, 128, use_pallas=True).to(cuda)
     gpu.load_state_dict(cpu.state_dict())
-    before = (tgs.gru_fma_launches, tgs.gru_bwd_launches, twg.launches)
+    before = (tgs.gru_fma_launches, tgs.gru_bwd_launches, twg.fma_launches, twg.launches)
     ys_g = gpu(xs.to(cuda), lengths.to(cuda), reverse=reverse)
     (ys_g * w.to(cuda)).sum().backward()
     torch.cuda.synchronize()
     assert (tgs.gru_fma_launches - before[0], tgs.gru_bwd_launches - before[1],
-            twg.launches - before[2]) == (1, 1, 1)             # f32: the FMA route
+            twg.fma_launches - before[2], twg.launches - before[3]) == (1, 1, 1, 0)  # f32: FMA
     ys_c = cpu(xs, lengths, reverse=reverse)
     (ys_c * w).sum().backward()
     assert _err(ys_g.cpu(), ys_c) <= 1e-4
@@ -547,7 +563,8 @@ def test_teacher_backward_and_dkeys_kernels_match_plain_on_card(cuda, dtype, tol
                                                            memory, mask)
     dxs = torch.from_numpy(rs.randn(*xs.shape).astype(np.float32)).to(cuda)
     dal = torch.from_numpy(rs.randn(*align.shape).astype(np.float32)).to(cuda) * 0.1
-    before = (ttd.bwd_launches, ttd.dkeys_launches, twg.launches, ttd.bwd_remat_launches)
+    before = (ttd.bwd_launches, ttd.dkeys_launches, ttd.bwd_remat_launches,
+              *_wgrad_launches())
     out = ttd.teacher_decoder_backward(png, pnc, h0a, h0d, w, keys, memory, mask,
                                        xs, align, ha, hds, dxs, dal)
     with mock.patch.object(ttd, "teacher_decoder_bwd", ttd.teacher_decoder_bwd_reference), \
@@ -556,7 +573,8 @@ def test_teacher_backward_and_dkeys_kernels_match_plain_on_card(cuda, dtype, tol
                                            xs, align, ha, hds, dxs, dal)
     torch.cuda.synchronize()
     assert (ttd.bwd_launches - before[0], ttd.dkeys_launches - before[1],
-            twg.launches - before[2], ttd.bwd_remat_launches - before[3]) == (1, 1, 1, 1)
+            ttd.bwd_remat_launches - before[2]) == (1, 1, 1)
+    assert _wgrad_delta(before[3:]) == _wgrad_route(dtype)
     names = ("dpng", "dpnc", "dh0a", "dh0d")
     for name, a, b in zip(names, out[:4], ref[:4]):
         assert _err(a, b) <= tol, (name, _err(a, b))
@@ -643,25 +661,127 @@ def test_teacher_bwd_kernels_over_several_tiles_and_a_given_pp_on_card(cuda, dty
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-5)])
 def test_wgrad_kernel_matches_plain_on_card(cuda, dtype, tol):
-    # strided views (a direction of [T, 2, B, F], a column slice), bias sums,
-    # 700 rows (split over blocks) and 6 rows (one split); both sides round
-    # the factors to the compute dtype and sum in f32, so only the summation
-    # order differs (relative 1e-4 for the products, 1e-5 for the sums)
+    # the FMA route: strided views (a direction of [T, 2, B, F], a column
+    # slice) whose rows are no whole 16-byte vectors (70 and 130 columns),
+    # bias sums, 700 rows (split over blocks) and 6 rows (one split); both
+    # sides round the factors to the compute dtype and sum in f32, so only
+    # the summation order differs (relative 1e-4 for the products, 1e-5 for
+    # the sums)
     rs = np.random.RandomState(10)
     big = torch.from_numpy(rs.randn(35, 2, 20, 200).astype(np.float32)).to(cuda)
     g = torch.from_numpy(rs.randn(35, 2, 20, 130).astype(np.float32)).to(cuda)
     problems = [(big[:, 1, :, :70].to(dtype), g[:, 0], True),
                 (big[:, 0], g[:, 1, :, 3:67], False)]
     few = (big[:3, 0, :2, :70].to(dtype), g[:3, 1, :2], True)     # 6 rows: one split
-    before = twg.launches
+    assert twg.route(problems, dtype) == twg.route([few], dtype) == "fma"
+    before = _wgrad_launches()
     out = twg.wgrad(problems, dtype) + twg.wgrad([few], dtype)
     ref = twg.wgrad_reference(problems, dtype) + twg.wgrad_reference([few], dtype)
     torch.cuda.synchronize()
-    assert twg.launches == before + 2
+    assert _wgrad_delta(before) == (0, 2)
     for (c, bias), (c_r, bias_r) in zip(out, ref):
         assert _err(c, c_r) <= 10 * tol and (bias is None) == (bias_r is None)
         if bias is not None:
             assert _err(bias, bias_r) <= tol
+
+
+def _rel(a, b):
+    """max |a - b| relative to max |b|."""
+    return (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+
+
+def _wgrad_tc_problems(rs, cuda):
+    """Problems that keep the tensor-core route's 16-byte rule, in one
+    launch: ragged K (40, 200, 264, 16) and N (72, 136, 8), rows 700, 33, 1
+    and 2100, strided views of [T, 2, B, F] with 16-byte-aligned column
+    slices, f32 and bf16 factors mixed, biases."""
+    f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(cuda)
+    big, gbig = f(35, 2, 20, 200), f(35, 2, 20, 140)
+    return [(big[:, 1, :, 8:48], gbig[:, 0, :, 4:76], True),
+            (big[:, 0].to(torch.bfloat16), gbig[:, 1, :, :136], False),
+            (f(3, 11, 264).to(torch.bfloat16), f(3, 11, 8), True),
+            (f(1, 1, 16), f(1, 1, 8).to(torch.bfloat16), True),
+            (f(300, 7, 128).to(torch.bfloat16), f(300, 7, 256), False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [None, 1, 5])
+def test_wgrad_tensor_core_route_matches_plain_on_card(cuda, splits):
+    # bf16 rounding on the tensor cores: both sides multiply the same
+    # rounded factors exactly in f32 and differ in summation order only
+    # (1e-4 of each product's peak, 1e-5 of each bias's); one row range,
+    # the plan's and five; a second launch equal bit for bit (no atomics)
+    problems = _wgrad_tc_problems(np.random.RandomState(14), cuda)
+    assert twg.route(problems, torch.bfloat16) == "mma"
+    before = _wgrad_launches()
+    out = twg.wgrad(problems, torch.bfloat16, splits=splits)
+    again = twg.wgrad(problems, torch.bfloat16, splits=splits)
+    ref = twg.wgrad_reference(problems, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _wgrad_delta(before) == (2, 0)
+    for (c, bias), (c2, bias2), (c_r, bias_r) in zip(out, again, ref):
+        assert torch.equal(c, c2) and (bias is None or torch.equal(bias, bias2))
+        assert _rel(c, c_r) <= 1e-4 and (bias is None) == (bias_r is None)
+        if bias is not None:
+            assert _rel(bias, bias_r) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_wgrad_routes_refuse_what_their_rule_excludes_on_card(cuda):
+    rs = np.random.RandomState(15)
+    problems = _wgrad_tc_problems(rs, cuda)
+    # a misaligned view (a row starting 4 bytes into a 16-byte vector) turns
+    # the launch to the FMA route; the launcher itself refuses such a factor
+    bad = problems[:1] + [(problems[1][0], problems[1][1][..., 1:133], False)]
+    assert twg.route(bad, torch.bfloat16) == "fma"
+    before = _wgrad_launches()
+    out = twg.wgrad(bad, torch.bfloat16)
+    ref = twg.wgrad_reference(bad, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _wgrad_delta(before) == (0, 1)
+    assert all(_rel(c, c_r) <= 1e-4 for (c, _), (c_r, _) in zip(out, ref))
+    a, g = bad[1][0], bad[1][1]
+    c = torch.empty((a.shape[-1], g.shape[-1]), device=cuda)
+    desc = twg._Problem(a.data_ptr(), g.data_ptr(), c.data_ptr(), None, a.stride(0),
+                        a.stride(1), g.stride(0), g.stride(1), a.shape[0], a.shape[1],
+                        a.shape[-1], g.shape[-1], 1, 0)
+    arr = ctypes.cast((twg._Problem * 1)(desc), ctypes.c_void_p)
+    lib = twg._lib()
+    assert lib.wgrad_tc_launch(arr, 1, 1, None, torch.cuda.current_stream().cuda_stream) != 0
+    # the wrapper's shared-memory count and the one block an SM its plan
+    # assumes are the kernel's own
+    assert lib.wgrad_tc_smem_bytes() == twg.tc_smem_bytes()
+    assert lib.wgrad_tc_blocks_per_sm() == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,A,scale", [(1, 7, 256, None), (3, 37, 256, 40.0),
+                                         (2, 13, 100, 40.0), (2, 21, 300, None)])
+def test_dkeys_kernel_matches_plain_on_card(cuda, dtype, B, L, A, scale):
+    # B=1; L=37 and 13, no multiple of the block's 16 positions; A=100 (a
+    # partial warp) and 300 (more than 256 threads: the 1024-thread
+    # instance); scale 40: keys and q uniform in [-40, 40], so most
+    # elements take the guarded tanhf and the rest reach k + q = +-40.
+    # Relative to the peak: sum order and a few ulp of tanh -> 1e-4; a
+    # second launch equal bit for bit
+    rs = np.random.RandomState(16)
+    S = 50
+    if scale is None:
+        keys, q = rs.randn(B, L, A) * 0.3, rs.randn(S, B, A)
+    else:
+        keys, q = rs.uniform(-scale, scale, (B, L, A)), rs.uniform(-scale, scale, (S, B, A))
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+    keys, q = t(keys).to(dtype), t(q)
+    de, v = t(rs.randn(S, B, L) * 1e-2), t(rs.randn(A) * 0.2).to(dtype)
+    before = ttd.dkeys_launches
+    dk, dv = ttd.dkeys(keys, q, de, v)
+    dk2, dv2 = ttd.dkeys(keys, q, de, v)
+    dk_r, dv_r = ttd.dkeys_reference(keys, q, de, v)
+    torch.cuda.synchronize()
+    assert ttd.dkeys_launches == before + 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert _rel(dk, dk_r) <= 1e-4 and _rel(dv, dv_r) <= 1e-4
 
 
 @pytest.mark.gpu

@@ -223,6 +223,7 @@ def test_bigru_keeps_its_parameter_tree():
 
 def test_gru_wrappers_raise_on_bad_inputs_and_cpu_launches_nothing():
     tgs.gru_launches = tgs.gru_fma_launches = tgs.gru_bwd_launches = twg.launches = 0
+    twg.fma_launches = 0
     args = _t(gru_inputs(np.random.RandomState(4), 5, 2, 16))
     assert torch.equal(tgs.gru_scan(*args), tgs.gru_scan_reference(*args))
     with pytest.raises(ValueError, match="xg"):
@@ -243,4 +244,4 @@ def test_gru_wrappers_raise_on_bad_inputs_and_cpu_launches_nothing():
     with pytest.raises(ValueError, match="reverse"):
         tmod.GRU(4, 8)(torch.zeros(1, 3, 4), reverse=True)
     assert (tgs.gru_launches == tgs.gru_fma_launches == tgs.gru_bwd_launches == twg.launches
-            == 0)
+            == twg.fma_launches == 0)

@@ -590,6 +590,31 @@ def test_dkeys_plain_matches_pallas_interpret():
     _close(dv.numpy(), np.einsum("sbl,sbla->a", de, act), 1e-5, "dv")
 
 
+def test_dkeys_plain_matches_pallas_interpret_on_saturated_inputs():
+    # keys and q uniform in [-40, 40]: the inputs on which the card kernel
+    # takes its guarded tanhf (|k| or |q| > 20) or sums k + q up to 40, so
+    # its card test stands on a checked plain version; tanh saturates there,
+    # the f32 sums over 6 steps -> 1e-6 of the peak, dv against numpy 1e-5
+    rs = np.random.RandomState(28)
+    S, B, L, A = 6, 3, 13, 128
+    keys = rs.uniform(-40, 40, (B, L, A)).astype(np.float32)
+    q = rs.uniform(-40, 40, (S, B, A)).astype(np.float32)
+    de = rs.randn(S, B, L).astype(np.float32)
+    v = rs.randn(A).astype(np.float32)
+    dk, dv = ttd.dkeys_reference(*map(torch.from_numpy, (keys, q, de, v)))
+    pad = lambda a, axis: np.pad(a, [(0, 128 - L if i == axis else 0) for i in range(a.ndim)])
+    dk_p = jtd._dkeys_pallas(jnp.asarray(pad(keys, 1)), jnp.asarray(q),
+                             jnp.asarray(pad(de, 2)), jnp.asarray(v[None]), S,
+                             interpret=True)
+    _close(dk.numpy(), np.asarray(dk_p)[:, :L], 1e-6, "dkeys")
+    act = np.tanh(keys[None] + q[:, :, None, :])
+    _close(dv.numpy(), np.einsum("sbl,sbla->a", de, act), 1e-5, "dv")
+    # most elements saturate (|k + q| > 9: 1 - tanh^2 below 1e-7), and the
+    # guard's share of them is real
+    assert (np.abs(keys[None] + q[:, :, None, :]) > 9).mean() > 0.5
+    assert (np.maximum(np.abs(keys)[None], np.abs(q)[:, :, None, :]) > 20).mean() > 0.5
+
+
 def test_teacher_function_matches_autograd_of_plain_forward():
     # TeacherDecoder on CPU tensors (plain forward, plain backward) against
     # torch.autograd through teacher_decoder_reference, alignment cotangents
@@ -623,7 +648,7 @@ def test_wgrad_plain_rounds_both_factors():
 
 def test_training_wrappers_take_the_plain_path_for_cpu_tensors():
     tgs.bwd_launches = ttd.fwd_launches = ttd.bwd_launches = ttd.dkeys_launches = 0
-    twg.launches = 0
+    twg.launches = twg.fma_launches = 0
     rs = np.random.RandomState(26)
     (xg, xc, whg, whc, _), hprev, dys = _bigru_bwd_case(rs, T=4, B=2, F=16)
     args = [torch.from_numpy(a) for a in (xg, xc, hprev, dys, whg, whc)]
@@ -638,7 +663,7 @@ def test_training_wrappers_take_the_plain_path_for_cpu_tensors():
     assert all(torch.equal(a, b) for a, b in zip(ttd.dkeys(keys, q, de, tw.v),
                                                  ttd.dkeys_reference(keys, q, de, tw.v)))
     assert (tgs.bwd_launches, ttd.fwd_launches, ttd.bwd_launches, ttd.dkeys_launches,
-            twg.launches) == (0, 0, 0, 0, 0)
+            twg.launches, twg.fma_launches) == (0, 0, 0, 0, 0, 0)
 
 
 def test_training_wrappers_raise_on_bad_inputs():

@@ -143,7 +143,8 @@ def _python_files():
                  "gru_bwd_variants.py", "gru_bwd_phase_clock.py", "gru_fwd_variants.py",
                  "gru_fwd_phase_clock.py", "gru_fwd_sigmoid_check.py", "variant_build.py",
                  "attention_variants.py", "attention_phase_clock.py",
-                 "attention_plan_sweep.py", "ola_variants.py"):
+                 "attention_plan_sweep.py", "ola_variants.py", "wgrad_variants.py",
+                 "dkeys_variants.py"):
         yield os.path.join(REPO, "tools", name)
 
 

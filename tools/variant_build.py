@@ -1,8 +1,7 @@
 """Build one version of a kernel library from a copy of ``csrc/`` with changes.
 
-Shared by ``tools/decoder_variants.py``, ``tools/teacher_bwd_variants.py``,
-``tools/gru_bwd_variants.py``, ``tools/gru_fwd_variants.py`` and
-``tools/attention_variants.py``.
+Shared by the ``tools/*_variants.py`` scripts (decoder, teacher_bwd,
+gru_bwd, gru_fwd, attention, ola, wgrad and dkeys).
 ``changes`` maps a file of ``csrc/`` to ``[[old, new], ...]`` (each ``old``
 must occur once) or to a path in the repo that replaces the whole file.
 """
