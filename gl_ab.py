@@ -4,7 +4,7 @@
     python3 gl_ab.py DIR [build] [--mode MODE]
 
 MODE is one of gl, decoder, teacher, teacher_fwd, gru_bwd, gru_fwd,
-attention, ola and wgrad.
+attention, ola, wgrad and loop.
 
 Runs the port of the checkout in DIR (any commit of it) on inputs made by
 this checkout's ``chip_smoke.py`` and prints one ``AB`` line.  ``build``
@@ -75,6 +75,12 @@ builds every kernel library of DIR first.
   (``ops.teacher_decoder.dkeys``) at S=200 B=32 L=192 A=256 bf16, its call
   time and the device time of its two kernels; then the bare train step as
   for ``teacher``.
+- ``loop``: the trainer's loop (``train_loop.train``) at full-width
+  ``multispeaker_vctk`` B=32 on ``chip_smoke._loop_corpus`` (64 utterances
+  featurised on the card), the timed window of ``chip_smoke._loop_window``
+  from a fresh start (steps 7-22 timed, 23-26 profiled): ms a step and the
+  profiled steps' idle share, on the Feeder and, where the checkout has
+  it, on the grain loader with 4 worker processes.
 
 To compare two versions on one card, run it in turns in one command:
 parent, change, change, parent.  Needs a CUDA device.
@@ -330,6 +336,32 @@ def _wgrad(c, torch):
     return " | ".join(parts)
 
 
+def _loop(c, torch):
+    import inspect
+    import shutil
+    import tempfile
+    from tacotron_multispeaker_torch import train_loop
+    from tacotron_multispeaker_torch.config import get_config
+    cfg = get_config("multispeaker_vctk", c.LOOP_OVERRIDES)
+    runs = [("feeder", {})]
+    if "pipeline_workers" in inspect.signature(train_loop.train).parameters:
+        runs.append((f"grain {c.LOOP_WORKERS} workers",
+                     dict(pipeline="grain", pipeline_workers=c.LOOP_WORKERS)))
+    parts = [] if len(runs) > 1 else ["grain: not in this checkout"]
+    base = tempfile.mkdtemp(prefix="loop_ab-")
+    try:
+        data = c._loop_corpus(base, cfg)[0]
+        for n, (label, kw) in enumerate(runs):
+            ms, prof = c._loop_window(os.path.join(base, f"logs{n}"), data, "", 0,
+                                      6 + c.LOOP_TIMED, **kw)
+            parts.append(f"{label} {ms:.2f} ms a step, idle share {prof['idle_share']:.3f} "
+                         f"(busy {prof['device_busy_ms']:.2f} of {prof['wall_ms']:.2f} ms over "
+                         f"{c.LOOP_PROFILED} profiled steps)")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return " | ".join(parts)
+
+
 def main() -> int:
     import torch
     import chip_smoke as c          # this checkout's; it imports the port lazily
@@ -337,7 +369,7 @@ def main() -> int:
     ap.add_argument("dir")
     ap.add_argument("build", nargs="?", choices=["build"])
     ap.add_argument("--mode", choices=["gl", "decoder", "teacher", "teacher_fwd", "gru_bwd",
-                                       "gru_fwd", "attention", "ola", "wgrad"],
+                                       "gru_fwd", "attention", "ola", "wgrad", "loop"],
                     default="gl")
     opts = ap.parse_args()
     root = os.path.abspath(opts.dir)
@@ -354,7 +386,7 @@ def main() -> int:
     line = {"gl": _gl, "decoder": _decoder, "teacher": _teacher,
             "teacher_fwd": _teacher_fwd, "gru_bwd": _gru_bwd,
             "gru_fwd": _gru_fwd, "attention": _attention, "ola": _ola,
-            "wgrad": _wgrad}[opts.mode](c, torch)
+            "wgrad": _wgrad, "loop": _loop}[opts.mode](c, torch)
     print(f"AB {opts.mode} {opts.dir}: {line}", flush=True)
     return 0
 

@@ -6,8 +6,9 @@ centered frames with reflect padding, periodic Hann window zero-padded to
 ``n_fft``, Slaney mel).  The analysis side (``preemphasis``,
 ``frame_signal``, ``stft``, ``linear_spectrogram``, ``mel_spectrogram``)
 featurises corpora for training; its FFT is ``torch.fft.rfft``, where the
-JAX package calls ``jnp.fft.rfft``.  ``spectrogram_targets`` (in-graph
-targets for ``train.targets_from_wav``) stands in ROADMAP.md.  Griffin-Lim
+JAX package calls ``jnp.fft.rfft``.  ``spectrogram_targets`` derives the
+same targets inside the train step (``train.targets_from_wav``) from the
+window-support DFT as two f32 products.  Griffin-Lim
 runs as DFT matrix products (methods
 ``dft_{f32,hi,bf16,mix}``) in either layout the JAX package uses:
 
@@ -227,6 +228,50 @@ def _dft_win_matrices(n_fft: int, win_length: int):
             (w[:, None] * S[sl]).astype(np.float32),
             (iC[:, sl] * w[None, :]).astype(np.float32),
             (iS[:, sl] * w[None, :]).astype(np.float32))
+
+
+
+@functools.lru_cache(maxsize=8)
+def _targets_constants(n_fft: int, win_length: int, sample_rate: int, num_mels: int,
+                       device: torch.device):
+    """(Cw, Sw, mel basis transposed [bins, num_mels]) float32 on
+    ``device``, built once."""
+    Cw, Sw, _, _ = _dft_win_matrices(n_fft, win_length)
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return to_dev(Cw), to_dev(Sw), to_dev(mel_basis(sample_rate, n_fft, num_mels).T)
+
+
+def spectrogram_targets(y: torch.Tensor, params: STFTParams, *, sample_rate: int,
+                        num_mels: int, preemph: float, ref_level_db: float,
+                        min_level_db: float, n_frames: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Waveform [..., S] -> (mel [..., F, num_mels], linear [..., F, bins])
+    normalized training targets in one pass, frame-major (the [B, T, bins]
+    layout the model trains on; preprocess computes the same features
+    offline with an FFT and transposes them).
+
+    Frames only the window's support (win_length of the n_fft samples:
+    frame k's support starts at k*hop + lpad of the centered, reflect-padded
+    signal), transforms it with the window-support DFT pair (the analysis
+    window folded into the matrices) as two float32 products (TF32 stays
+    off, PyTorch's default), and projects the same magnitude onto the mel
+    basis.  ``n_frames`` keeps the first frames only."""
+    n_fft, hop, win = params.n_fft, params.hop_length, params.win_length
+    yp = preemphasis(y.float(), preemph)
+    pad = n_fft // 2
+    lpad = (n_fft - win) // 2
+    lead = yp.shape[:-1]
+    y_pad = torch.nn.functional.pad(yp.reshape(1, -1, yp.shape[-1]), (pad, pad),
+                                    mode="reflect").reshape(*lead, -1)
+    total = 1 + (y_pad.shape[-1] - n_fft) // hop
+    n_keep = total if n_frames is None else min(n_frames, total)
+    sup = _frame_rows(y_pad[..., lpad:], win, hop, n_keep)
+    Cw, Sw, basis_t = _targets_constants(n_fft, win, sample_rate, num_mels, y.device)
+    re, im = sup @ Cw, sup @ Sw
+    mag = torch.sqrt(re * re + im * im)                     # [..., F, bins]
+    linear = normalize_db(amp_to_db(mag) - ref_level_db, min_level_db)
+    mel = normalize_db(amp_to_db(mag @ basis_t) - ref_level_db, min_level_db)
+    return mel, linear
 
 
 # ----------------------------------------------------------------------------

@@ -9,10 +9,15 @@ reduction factor r).  Optional random cmudict pronunciation substitution is
 applied at text-encode time.  :class:`PrefetchIterator` keeps host batches
 ready on a background thread.
 
-Batches are numpy arrays; the train loop moves them to its device.  The
-JAX package's C++ batch assembler (``native/batcher.cc``) is not ported
-(the numpy path is its reference), and ``train.targets_from_wav`` and
-``train.targets_dtype=bfloat16`` stand in ROADMAP.md.
+Targets are read and padded by the native batch assembler
+(``data/native_batcher.py``) where it builds, else by numpy (its
+reference).  ``train.targets_dtype=bfloat16`` rounds them on the host
+(half the bytes to copy); ``train.targets_from_wav`` ships int16 PCM
+instead, from which the train step derives them.  A Feeder given
+``empty`` assembles the targets straight into the tensors it returns:
+page-locked memory (:func:`pinned_empty`) for an asynchronous copy to the
+card, or a worker process's slot of shared memory
+(data/grain_pipeline.py).
 """
 
 from __future__ import annotations
@@ -22,30 +27,49 @@ import queue
 import random
 import re
 import threading
+import time
 from dataclasses import dataclass
 from typing import Iterator, Sequence
 
 import numpy as np
+import torch
 
 from ..text import CMUDict, text_to_sequence
+from ..utils import infolog
+from . import native_batcher
 
 _WORD_RE = re.compile(r"([a-zA-Z']+)")
+_NUMPY = {torch.float32: np.float32, torch.int16: np.int16}
 
 
 @dataclass
 class Batch:
-    """One padded training batch (numpy)."""
+    """One padded training batch on the host.
+
+    The id and length fields are numpy arrays.  The targets are numpy
+    arrays, or CPU tensors where the Feeder was given ``empty`` or they are
+    bfloat16 (which numpy lacks).  With ``train.targets_from_wav``,
+    ``mel_targets`` carries the [B, T*hop] int16 PCM instead and
+    ``linear_targets`` is an empty [B, 0, 0] placeholder: the train step
+    derives both spectrograms (training.py derive_wav_targets), and the
+    step's signature stays the same."""
 
     inputs: np.ndarray          # [B, L] int32 symbol ids
     input_lengths: np.ndarray   # [B] int32
-    mel_targets: np.ndarray     # [B, T, num_mels] float32
-    linear_targets: np.ndarray  # [B, T, num_freq] float32
+    mel_targets: np.ndarray     # [B, T, num_mels] float32 or bfloat16 (or int16 PCM)
+    linear_targets: np.ndarray  # [B, T, num_freq] float32 or bfloat16
     target_lengths: np.ndarray  # [B] int32 (true frame counts, <= T)
     speaker_ids: np.ndarray     # [B] int32
 
     @property
     def batch_size(self) -> int:
         return self.inputs.shape[0]
+
+
+def pinned_empty(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """A host tensor in page-locked memory (PyTorch's caching host
+    allocator): its copy to the card runs asynchronously."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
 
 
 def pad_axis(x: np.ndarray, length: int, axis: int = 0) -> np.ndarray:
@@ -92,17 +116,19 @@ class Feeder:
     group's short last batch is dropped: the JAX Feeder's ``shuffle``,
     ``seed`` and ``drop_remainder`` options serve only ``validate.py``,
     which waits in ROADMAP.md ("Data + loop").
+
+    ``use_native``: the C++ assembler for the f32 targets; None means
+    "where it builds" (the choice is logged).  ``empty(shape, dtype)``
+    allocates the targets' tensors; None gives numpy arrays.
     """
 
     def __init__(self, data_dir: str, cfg, *, cmudict_path: str | None = None,
+                 use_native: bool | None = None, empty=None,
                  process_index: int | None = None, process_count: int | None = None):
         from .preprocess import load_metadata
-        if cfg.train.targets_from_wav:
-            raise NotImplementedError("train.targets_from_wav is not ported yet (ROADMAP.md, "
-                                      "'Data + loop')")
-        if cfg.train.targets_dtype != "float32":
-            raise NotImplementedError(f"train.targets_dtype={cfg.train.targets_dtype!r} is not "
-                                      "ported yet (ROADMAP.md, 'Data + loop')")
+        if cfg.train.targets_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"train.targets_dtype={cfg.train.targets_dtype!r}: "
+                             "float32 or bfloat16")
         self.data_dir = data_dir
         self.cfg = cfg
         self.audio = cfg.audio
@@ -124,6 +150,12 @@ class Feeder:
             self.cmudict = CMUDict(cmudict_path, keep_ambiguous=False)
         self._epoch = 0
         self._enc_len_cache: dict[str, int] = {}
+        if use_native is None:
+            use_native = native_batcher.available()
+            infolog.log("feeder: native batch assembler " + (
+                "on" if use_native else f"off, numpy path ({native_batcher.build_error()})"))
+        self.use_native = use_native
+        self.empty = empty
 
     @property
     def local_batch_size(self) -> int:
@@ -178,13 +210,67 @@ class Feeder:
         inputs = np.stack([pad_axis(i, L) for i in ids]).astype(np.int32)
         input_lengths = np.asarray([min(len(i), L) for i in ids], np.int32)
         speaker_ids = np.asarray([r["speaker_id"] for r in rows], np.int32)
-        load = lambda name: np.load(os.path.join(self.data_dir, name), allow_pickle=False)
-        ms = [load(r["mel_file"]) for r in rows]
-        ls = [load(r["linear_file"]) for r in rows]
-        mels = np.stack([pad_axis(m, T) for m in ms]).astype(np.float32)
-        linears = np.stack([pad_axis(x, T) for x in ls]).astype(np.float32)
-        target_lengths = np.asarray([min(m.shape[0], T) for m in ms], np.int32)
+        if self.cfg.train.targets_from_wav:
+            # PCM padded to T*hop samples: centered framing then gives T+1
+            # frames, of which the step keeps T, so no true sample is cut
+            pcm, held = self._buffer((len(rows), T * self.audio.hop_length), torch.int16)
+            for i, r in enumerate(rows):
+                self._fill_row(pcm[i], self._load_wav(r))
+            target_lengths = np.asarray([min(r["n_frames"], T) for r in rows], np.int32)
+            return Batch(inputs, input_lengths, held, np.zeros((len(rows), 0, 0), np.float32),
+                         target_lengths, speaker_ids)
+        mels, target_lengths = self._targets(rows, T, "mel_file", self.audio.num_mels)
+        linears, _ = self._targets(rows, T, "linear_file", self.audio.num_freq)
         return Batch(inputs, input_lengths, mels, linears, target_lengths, speaker_ids)
+
+    def _buffer(self, shape: tuple, dtype: torch.dtype) -> tuple[np.ndarray, object]:
+        """(the array to fill, what the Batch holds): one numpy array, or
+        the tensor from ``empty`` and its array."""
+        if self.empty is None:
+            a = np.empty(shape, _NUMPY[dtype])
+            return a, a
+        t = self.empty(shape, dtype)
+        return t.numpy(), t
+
+    @staticmethod
+    def _fill_row(out: np.ndarray, x: np.ndarray) -> int:
+        """``x`` cut or zero-padded along its first axis into ``out``."""
+        n = min(len(x), len(out))
+        out[:n] = x[:n]
+        out[n:] = 0
+        return n
+
+    def _load_wav(self, row: dict) -> np.ndarray:
+        from .preprocess import wav_file_for
+        path = os.path.join(self.data_dir, wav_file_for(row))
+        try:
+            return np.load(path, allow_pickle=False)
+        except FileNotFoundError:
+            raise FileNotFoundError(
+                f"{path} missing — train.targets_from_wav needs the PCM passthrough; re-run "
+                "preprocess with --keep_wavs") from None
+
+    def _targets(self, rows: list, T: int, key: str, cols: int):
+        """[B, T, cols] targets of ``rows`` (file column ``key``), and the
+        frames each has (<= T)."""
+        bf16 = self.cfg.train.targets_dtype == "bfloat16"
+        shape = (len(rows), T, cols)
+        if bf16:                    # rounded below from an f32 array
+            out = held = np.empty(shape, np.float32)
+        else:
+            out, held = self._buffer(shape, torch.float32)
+        paths = [os.path.join(self.data_dir, r[key]) for r in rows]
+        if self.use_native:
+            lengths = native_batcher.assemble_into(paths, out)
+        else:
+            lengths = np.asarray([self._fill_row(o, np.load(p, allow_pickle=False))
+                                  for o, p in zip(out, paths)], np.int32)
+        if bf16:
+            # round to nearest even, as ml_dtypes does
+            src = torch.from_numpy(out)
+            held = (src.to(torch.bfloat16) if self.empty is None
+                    else self.empty(shape, torch.bfloat16).copy_(src))
+        return held, lengths
 
     def epoch_plan(self, epoch: int) -> list[tuple]:
         """The metadata-only batch plan for one epoch: take ``batch_size *
@@ -244,11 +330,14 @@ class Feeder:
 
 class PrefetchIterator:
     """Background-thread prefetch wrapper: a bounded queue filled by a
-    daemon thread; an exception in the thread is raised to the consumer."""
+    daemon thread; an exception in the thread is raised to the consumer.
+    :meth:`close` stops the thread, then closes the source where it has a
+    ``close`` (a loader's worker processes)."""
 
     _DONE = object()
 
     def __init__(self, iterable, prefetch: int = 4):
+        self._source = iterable
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._exc: BaseException | None = None
@@ -278,10 +367,22 @@ class PrefetchIterator:
             raise StopIteration
         return item
 
-    def close(self):
-        self._stop.set()
+    def _drain(self):
         try:
             while True:
                 self._q.get_nowait()
         except queue.Empty:
             pass
+
+    def close(self, timeout: float = 60.0):
+        self._stop.set()
+        # the thread ends after at most one more item; its puts may block on
+        # a full queue, so drain while waiting
+        deadline = time.monotonic() + timeout
+        while self._thread.is_alive() and time.monotonic() < deadline:
+            self._drain()
+            self._thread.join(0.05)
+        self._drain()
+        close = getattr(self._source, "close", None)
+        if close is not None and not self._thread.is_alive():
+            close()

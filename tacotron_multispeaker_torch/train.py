@@ -1,7 +1,8 @@
 """Training entry point of the port.
 
     python -m tacotron_multispeaker_torch.train --base_dir ./runs --preset tiny \
-        [--hparams train.batch_size=8] [--max_steps 1000] [--name myrun] [--device cpu]
+        [--hparams train.batch_size=8] [--max_steps 1000] [--name myrun] [--device cpu] \
+        [--pipeline grain --pipeline_workers 4]
 
 Trains on ``<base_dir>/<input>`` (a corpus written by
 ``python -m tacotron_multispeaker_torch.preprocess`` or by the JAX
@@ -32,7 +33,10 @@ def main(argv=None) -> dict:
                    help="cmudict-0.7b file for pronunciation augmentation "
                         "(enable with train.cmudict_prob>0)")
     p.add_argument("--pipeline", default="feeder", choices=["feeder", "grain"],
-                   help="input pipeline (grain is not ported yet)")
+                   help="input pipeline: the Feeder on a prefetch thread, or worker "
+                        "processes over the same global batch plan")
+    p.add_argument("--pipeline_workers", type=int, default=0,
+                   help="grain worker processes (0 = in-process)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA device; cpu runs the plain "
                         "PyTorch path)")
@@ -49,7 +53,8 @@ def main(argv=None) -> dict:
     return train(os.path.join(args.base_dir, f"logs-{run_name}"),
                  os.path.join(args.base_dir, args.input), cfg, max_steps=args.max_steps,
                  restore=not args.no_restore, profile_steps=profile_steps,
-                 cmudict_path=args.cmudict_path, pipeline=args.pipeline, device=args.device)
+                 cmudict_path=args.cmudict_path, pipeline=args.pipeline,
+                 pipeline_workers=args.pipeline_workers, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,13 @@
 """The training loop: preprocessed corpus → train steps → checkpoints.
 
 Port of ``tacotron_multispeaker_tpu/train_loop.py``.  Per step: one
-``make_train_step`` update on the device, its batch from the ``Feeder`` on
-a prefetch thread.  Every ``checkpoint_interval`` steps: a checkpoint
+``make_train_step`` update on the device.  Its batch comes from the
+``Feeder`` (``pipeline="feeder"``) or from ``pipeline_workers`` worker
+processes over the Feeder's plan (``pipeline="grain"``,
+data/grain_pipeline.py), either on a prefetch thread, and lands in
+page-locked memory on a CUDA device; :class:`DeviceBatches` copies it to
+the device on a side stream one batch ahead of the step.  Every
+``checkpoint_interval`` steps: a checkpoint
 (utils/checkpoint.py), then inference on a training example through the
 ``Synthesizer`` with the training weights, written as a Griffin-Lim WAV,
 its alignments (``.npy``) and, where matplotlib is installed, their plot
@@ -13,7 +18,7 @@ the loss and aborts on a non-finite one; summaries at steps ≤ 5 and every
 ``summary_interval``; after a divergence abort no checkpoint is written,
 otherwise the final state is saved.  ``profile_steps=(START, STOP)`` traces
 steps [START, STOP) with ``torch.profiler``.  Not ported yet (ROADMAP.md):
-the grain pipeline and training on more than one process.
+training on more than one process.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from .config import Config
-from .data.feeder import Feeder, PrefetchIterator
+from .data.feeder import Feeder, PrefetchIterator, pinned_empty
 from .device import resolve_device
 from .parallel.distributed import is_primary_host
 from .training import create_train_state, make_train_step
@@ -35,19 +40,23 @@ from .utils.metrics import MetricsWriter
 
 log = infolog.log
 
+# the grain loader's limit on one batch (seconds): a stuck worker process
+# fails the run instead of hanging it
+LOADER_TIMEOUT_S = 600
+
 
 def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = None,
           restore: bool = True, profile_steps: tuple[int, int] | None = None,
           cmudict_path: str | None = None, pipeline: str = "feeder",
-          device=None) -> dict:
+          pipeline_workers: int = 0, device=None) -> dict:
     """Run training; returns the final step and metrics, ``step_seconds``
     (the host time of each of the last ≤ 100 steps, as (step, seconds);
     checkpoints and eval artifacts excluded) and, with ``profile_steps``,
-    the profiled window's summary under ``profile``.  ``device=None`` is the
-    CUDA device (raises without one)."""
-    if pipeline != "feeder":
-        raise NotImplementedError(f"pipeline={pipeline!r} is not ported yet (ROADMAP.md, "
-                                  "'Data + loop': the grain pipeline); use 'feeder'")
+    the profiled window's summary under ``profile``.  ``pipeline``:
+    "feeder" or "grain" (``pipeline_workers`` worker processes; 0 is
+    in-process).  ``device=None`` is the CUDA device (raises without one)."""
+    if pipeline not in ("feeder", "grain"):
+        raise ValueError(f"pipeline={pipeline!r}: 'feeder' or 'grain'")
     if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
         raise NotImplementedError("training on more than one process is not ported yet "
                                   "(ROADMAP.md, 'Parallel training')")
@@ -72,8 +81,17 @@ def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = N
     if is_primary_host():
         from .synthesizer import Synthesizer
         synth = Synthesizer(cfg, device=dev, seed=cfg.train.seed)
-    batches = PrefetchIterator(iter(Feeder(data_dir, cfg, cmudict_path=cmudict_path)),
-                               prefetch=4)
+    pin = dev.type == "cuda"
+    if pipeline == "grain":
+        from .data.grain_pipeline import grain_global_batches
+        source = grain_global_batches(data_dir, cfg, cmudict_path=cmudict_path,
+                                      worker_count=pipeline_workers, pin_memory=pin,
+                                      timeout=LOADER_TIMEOUT_S)
+    else:
+        source = iter(Feeder(data_dir, cfg, cmudict_path=cmudict_path,
+                             empty=pinned_empty if pin else None))
+    batches = PrefetchIterator(source, prefetch=4)
+    feed = DeviceBatches(batches, dev)
 
     max_steps = max_steps if max_steps is not None else cfg.train.max_steps
     metrics = {}
@@ -104,9 +122,11 @@ def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = N
                 elif prof is not None and step >= profile_steps[1]:
                     prof_summary = _stop_profile(prof, prof_t0, dev, log_dir, profile_steps)
                     prof = None
-            host_batch = next(batches)
-            state, metrics = step_fn(state, *batch_to_device(host_batch, dev))
+            host_batch, args = feed.take()
+            state, metrics = step_fn(state, *args)
             step += 1
+            if step < max_steps:
+                feed.prefetch()         # the next batch's copy runs beside this step
             if step % sync_every == 0:
                 check_finite(float(metrics["loss"]))
             t_now = time.time()
@@ -147,13 +167,53 @@ def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = N
     return out
 
 
-def batch_to_device(batch, dev) -> list[torch.Tensor]:
-    """A host ``Batch`` as ``make_train_step``'s arguments on ``dev``
-    (integer arrays as int64)."""
-    return [torch.as_tensor(a, device=dev).long() if a.dtype.kind in "iu"
-            else torch.as_tensor(a, device=dev)
-            for a in (batch.inputs, batch.input_lengths, batch.mel_targets,
-                      batch.linear_targets, batch.target_lengths, batch.speaker_ids)]
+def batch_to_device(batch, dev, non_blocking: bool = False) -> list[torch.Tensor]:
+    """A host ``Batch`` as ``make_train_step``'s arguments on ``dev``: the
+    id and length arrays as int64, the targets in their own dtype (float32,
+    bfloat16, or the int16 PCM of ``train.targets_from_wav``)."""
+    to = lambda a: torch.as_tensor(a).to(dev, non_blocking=non_blocking)
+    return [to(batch.inputs).long(), to(batch.input_lengths).long(), to(batch.mel_targets),
+            to(batch.linear_targets), to(batch.target_lengths).long(),
+            to(batch.speaker_ids).long()]
+
+
+class DeviceBatches:
+    """Host batches → (host batch, ``make_train_step``'s arguments on
+    ``dev``).  On a CUDA device :meth:`prefetch` issues the next batch's
+    copy (``non_blocking``; asynchronous from page-locked memory) on a side
+    stream and records an event; :meth:`take` makes the current stream
+    wait on that event and marks the copies as used by it
+    (``record_stream``), so the allocator reuses their memory only after
+    the step that reads them.  Elsewhere the copy is plain."""
+
+    def __init__(self, batches, dev: torch.device):
+        self._batches = batches
+        self.dev = dev
+        self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self._next = None
+
+    def prefetch(self) -> None:
+        host = next(self._batches)
+        if self._stream is None:
+            self._next = (host, batch_to_device(host, self.dev), None)
+            return
+        with torch.cuda.stream(self._stream):
+            args = batch_to_device(host, self.dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        self._next = (host, args, done)
+
+    def take(self):
+        if self._next is None:
+            self.prefetch()
+        host, args, done = self._next
+        self._next = None
+        if done is not None:
+            stream = torch.cuda.current_stream(self.dev)
+            stream.wait_event(done)
+            for a in args:
+                a.record_stream(stream)
+        return host, args
 
 
 def _checkpoint_and_eval(ckpt, state, step, synth, batch, cfg, log_dir):

@@ -11,8 +11,10 @@ The JAX step is a pure function of an immutable state; here the state holds
 the model (parameters and BatchNorm running statistics) and the optimizer,
 and a step updates them in place.  Prenet dropout draws from a
 ``torch.Generator`` seeded from (seed, step), as the JAX step folds the step
-into its key.  The data-parallel and hybrid steps, ``train.targets_from_wav``
-and ``train.adam_mu_dtype=bfloat16`` are not ported yet (ROADMAP.md).
+into its key.  With ``train.targets_from_wav`` the step derives its
+spectrogram targets from the batch's int16 PCM (:func:`derive_wav_targets`).
+The data-parallel and hybrid steps and ``train.adam_mu_dtype=bfloat16`` are
+not ported yet (ROADMAP.md).
 :func:`sharded_speaker_embed` (the lookup from a row-sharded speaker table)
 serves the sharded synthesis of synthesizer.py.
 """
@@ -23,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .audio import dsp
 from .config import Config
 from .device import resolve_device
 from .models import Tacotron, create_model, tacotron_loss
@@ -121,15 +124,30 @@ def _fold_generator(seed: int, index: int, device: torch.device) -> torch.Genera
         (seed * 1_000_003 + index) % (2 ** 63 - 1))
 
 
+def derive_wav_targets(wav_targets: torch.Tensor, cfg: Config) -> tuple[torch.Tensor,
+                                                                        torch.Tensor]:
+    """[B, T*hop] int16 PCM -> (mel [B, T, M], linear [B, T, bins]) float32
+    targets (``train.targets_from_wav``): the step computes its own
+    targets from the waveform (audio/dsp.py spectrogram_targets), so the
+    host ships ~8x fewer bytes a frame.  ``train.wav_dft_precision=high``
+    (bf16x3 products on the TPU) runs float32 products too: PyTorch has no
+    bf16x3 mode."""
+    params = dsp.STFTParams.from_config(cfg.audio)
+    a = cfg.audio
+    return dsp.spectrogram_targets(
+        wav_targets.float() / 32768.0, params, sample_rate=a.sample_rate,
+        num_mels=a.num_mels, preemph=a.preemphasis, ref_level_db=a.ref_level_db,
+        min_level_db=a.min_level_db, n_frames=wav_targets.shape[-1] // params.hop_length)
+
+
 def make_train_step(cfg: Config, model: Tacotron):
     """The step ``(state, inputs, input_lengths, mel_targets, linear_targets,
     target_lengths, speaker_ids) -> (state, metrics)``, batches in the
-    Feeder's layout.  Metrics (0-dim f32 tensors, read without a host sync
-    inside the step): loss, mel_loss, linear_loss, grad_norm (before
-    clipping), and lr (float), the rate this update used."""
-    if cfg.train.targets_from_wav:
-        raise NotImplementedError("train.targets_from_wav is not ported yet (ROADMAP.md, "
-                                  "'Data + loop': spectrogram_targets in the step)")
+    Feeder's layout (with ``train.targets_from_wav``: the PCM in
+    ``mel_targets``, ``linear_targets`` unused).  Metrics (0-dim f32
+    tensors, read without a host sync inside the step): loss, mel_loss,
+    linear_loss, grad_norm (before clipping), and lr (float), the rate this
+    update used."""
     tr = cfg.train
     schedule = learning_rate_schedule(cfg)
     n_speakers = cfg.model.num_speakers
@@ -140,6 +158,9 @@ def make_train_step(cfg: Config, model: Tacotron):
         dev = inputs.device
         for p in state.optimizer.params:
             p.grad = None
+        if tr.targets_from_wav:
+            with torch.no_grad():
+                mel_targets, linear_targets = derive_wav_targets(mel_targets, cfg)
         out = model(inputs, input_lengths, mel_targets,
                     speaker_ids if n_speakers > 1 else None,
                     generator=_fold_generator(state.seed, state.step, dev))

@@ -189,9 +189,8 @@ def test_feeder_helpers_and_unported_options(corpora):
         np.testing.assert_array_equal(feeder.pad_axis(x, length), jfeeder.pad_axis(x, length))
     for n in (1, 100, 101, 250):
         assert feeder.pick_bucket(n, (100, 200)) == jfeeder.pick_bucket(n, (100, 200))
-    for override in ("train.targets_from_wav=true", "train.targets_dtype=bfloat16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            feeder.Feeder(out_t, tconfig.get_config("tiny", f"{TINY},{override}"))
+    with pytest.raises(ValueError, match="targets_dtype"):
+        feeder.Feeder(out_t, tconfig.get_config("tiny", f"{TINY},train.targets_dtype=float16"))
     with pytest.raises(ValueError, match="process_count"):
         feeder.Feeder(out_t, tcfg, process_index=0, process_count=3)
     # the prefetch thread hands batches over in order and re-raises its error

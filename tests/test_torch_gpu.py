@@ -1386,3 +1386,45 @@ def test_sequence_sharded_synth_on_card_matches_unsharded(cuda):
         np.testing.assert_allclose(mel, mel_r, atol=2e-3)
         np.testing.assert_allclose(al, al_r, atol=1e-4)
         np.testing.assert_allclose(wav, wav_r, atol=1e-3 * np.abs(wav_r).max())
+
+
+@pytest.mark.gpu
+def test_pinned_batches_copy_on_a_side_stream_on_card(cuda):
+    # DeviceBatches: the step's inputs equal the host batch (ids as int64,
+    # f32 / bf16 / int16 targets in their dtype), and a second batch's copy,
+    # issued while the step still reads the first (a sleep on the compute
+    # stream, the first batch's tensors already dropped by Python), does not
+    # land in the first batch's memory
+    from tacotron_multispeaker_torch.data.feeder import Batch, pinned_empty
+    from tacotron_multispeaker_torch.train_loop import DeviceBatches
+
+    def host(seed, dtype):
+        rs = np.random.RandomState(seed)
+        tgt = lambda *s: pinned_empty(s, dtype).copy_(
+            torch.from_numpy(rs.uniform(-1, 1, s).astype(np.float32) * 1000))
+        ints = lambda *s: rs.randint(0, 60, s).astype(np.int32)
+        return Batch(ints(4, 32), ints(4), tgt(4, 200, 80), tgt(4, 200, 513), ints(4),
+                     ints(4))
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int16):
+        hosts = [host(s, dtype) for s in range(3)]
+        feed = DeviceBatches(iter(hosts), cuda)
+        sums = []
+        for n in range(3):
+            h, args = feed.take()
+            assert h is hosts[n]
+            assert [a.dtype for a in args] == [torch.int64] * 2 + [dtype] * 2 + [torch.int64] * 2
+            torch.cuda._sleep(50_000_000)               # ~25 ms of the compute stream
+            sums.append([a.double().sum() for a in args])
+            del args
+            if n < 2:
+                feed.prefetch()
+        torch.cuda.synchronize()
+        for h, got in zip(hosts, sums):
+            want = [torch.as_tensor(getattr(h, f)).double().sum() for f in (
+                "inputs", "input_lengths", "mel_targets", "linear_targets", "target_lengths",
+                "speaker_ids")]
+            # double sums in two orders: 1e-12 relative (another batch's
+            # values, uniform in +-1000, would be off by thousands)
+            np.testing.assert_allclose([float(g) for g in got], [float(w) for w in want],
+                                       rtol=1e-12, err_msg=str(dtype))

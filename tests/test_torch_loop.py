@@ -180,8 +180,6 @@ def test_train_entry_point_and_unported_options(corpus, tmp_path, monkeypatch):
     assert CheckpointManager(os.path.join(logs, "checkpoints")).steps() == [2]
     assert os.listdir(os.path.join(logs, "profile")) == ["steps-1-2.json"]
     cfg = tconfig.get_config("tiny", OV)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_loop.train(str(tmp_path / "g"), corpus, cfg, pipeline="grain", device="cpu")
     monkeypatch.setenv("TACOTRON_TB", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_loop.train(str(tmp_path / "tb"), corpus, cfg, max_steps=1, device="cpu")

@@ -1,5 +1,6 @@
 """The port's Synthesizer against the JAX package's, and the port's import
-boundary (it must not import JAX, flax or the JAX package)."""
+boundary (it must not import JAX, flax, grain, ml_dtypes or the JAX
+package, nor load the JAX package's native library)."""
 
 import ast
 import math
@@ -25,7 +26,8 @@ from tacotron_multispeaker_torch.synthesizer import Synthesizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "tacotron_multispeaker_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tacotron_multispeaker_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "ml_dtypes",
+             "tacotron_multispeaker_tpu")
 
 
 def _variables(jcfg, seed=0):
@@ -188,3 +190,17 @@ def test_importing_the_port_loads_no_jax_module():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     # every module was imported, the entry points and the train loop's among them
     assert int(proc.stdout.split()[0]) >= 30
+
+
+def test_port_builds_and_loads_its_own_native_batcher():
+    # no source of the port names the JAX package's native directory or its
+    # library; the batcher the port loads is its own build of its own copy
+    from tacotron_multispeaker_torch.data import native_batcher
+    bad = [os.path.relpath(path, REPO) for path in _python_files()
+           if "tacotron_multispeaker_tpu/native" in open(path).read()
+           or "libbatcher" in open(path).read()]
+    assert not bad, bad
+    assert native_batcher.SRC == native_batcher._PKG / "native" / "batcher.cc"
+    assert native_batcher.available(), native_batcher.build_error()
+    loaded = os.path.realpath(native_batcher._lib._name)
+    assert loaded.startswith(os.path.join(PORT, "build") + os.sep), loaded

@@ -164,9 +164,6 @@ def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         training.create_train_state(tconfig.get_config("tiny", "train.adam_mu_dtype=bfloat16"),
                                     device="cpu")
-    cfg = tconfig.get_config("tiny", "train.targets_from_wav=true")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        training.make_train_step(cfg, create_model("tacotron", cfg))
 
 
 # --------------------------------------------------------------------------
