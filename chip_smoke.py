@@ -112,8 +112,10 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2584,7 +2586,7 @@ def _run_cli(base, name, extra):
                              f"\n{proc.stderr[-3000:]}")
 
 
-def phase_train_loop(bare_step_s):
+def phase_train_loop(bare_step_s, base):
     """``train_loop.train`` at full-width ``multispeaker_vctk`` (B=32) on
     ``_loop_corpus``: 12 steps with a checkpoint and eval at step 10
     (finite losses, checkpoints at 10 and 12, the eval WAV, every launch:
@@ -2601,10 +2603,10 @@ def phase_train_loop(bare_step_s):
     card against the offline features (max < 0.01, 90th percentile <
     2e-4).  Two ``python -m tacotron_multispeaker_torch.train --max_steps
     2`` subprocesses, the second with ``--pipeline grain
-    --pipeline_workers 2``.  Returns the launches of the 12-step run."""
+    --pipeline_workers 2``.  The corpus stays in ``base`` for phase 9.
+    Returns the launches of the 12-step run."""
     import math
     import shutil
-    import tempfile
     import numpy as np
     import torch
     from scipy.io import wavfile
@@ -2618,191 +2620,187 @@ def phase_train_loop(bare_step_s):
     from tacotron_multispeaker_torch.utils.checkpoint import CheckpointManager
 
     cfg = get_config("multispeaker_vctk", LOOP_OVERRIDES)
-    base = tempfile.mkdtemp(prefix="train_loop-")
-    try:
-        data, rows, make_s, feat_s = _loop_corpus(base, cfg)
-        plan = Feeder(data, cfg).epoch_plan(0)
-        frames = sorted(r[2] for r in rows)
-        log(f"[train_loop] corpus: 64 utterances, {frames[0]}-{frames[-1]} frames, made in "
-            f"{make_s:.2f} s, featurised on the card in {feat_s:.2f} s (PCM kept); epoch 0 "
-            f"batches (L, T): {[(e[3], e[4]) for e in plan]}")
+    data, rows, make_s, feat_s = _loop_corpus(base, cfg)
+    plan = Feeder(data, cfg).epoch_plan(0)
+    frames = sorted(r[2] for r in rows)
+    log(f"[train_loop] corpus: 64 utterances, {frames[0]}-{frames[-1]} frames, made in "
+        f"{make_s:.2f} s, featurised on the card in {feat_s:.2f} s (PCM kept); epoch 0 "
+        f"batches (L, T): {[(e[3], e[4]) for e in plan]}")
 
-        log_dir = os.path.join(base, "logs")
-        reset_counts()
+    log_dir = os.path.join(base, "logs")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train_loop.train(log_dir, data, cfg, max_steps=LOOP_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = read_counts()
+    want = {k: LOOP_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
+    for k, v in path_launches("serve", cfg, cfg.model.max_iters).items():
+        want[k] += v                                 # the eval request at step 10
+    if total != want:
+        raise AssertionError(f"train loop launches {total}, expected {want}")
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        summaries = [json.loads(line) for line in f]
+    ckpts = CheckpointManager(os.path.join(log_dir, "checkpoints")).steps()
+    wav = os.path.join(log_dir, "step-10-audio.wav")
+    rate, pcm = wavfile.read(wav)
+    eval_log = [line.strip() for line in open(os.path.join(log_dir, "train.log"))
+                if "eval artifact" in line]
+    log(f"[train_loop] multispeaker_vctk B=32, {LOOP_STEPS} steps in {wall:.2f} s "
+        f"(setup included): losses " + ", ".join(f"{r['step']}: {r['loss']:.5f}"
+                                                 for r in summaries)
+        + f"; checkpoints {ckpts}; eval WAV {pcm.shape[0]} samples at {rate} Hz; "
+        f"{eval_log}; launches {json.dumps(total)}")
+    if not (out["step"] == LOOP_STEPS and ckpts == [10, LOOP_STEPS]
+            and [r["step"] for r in summaries] == [1, 2, 3, 4, 5]
+            and all(math.isfinite(r["loss"]) for r in summaries)
+            and math.isfinite(out["loss"])
+            and rate == cfg.audio.sample_rate and pcm.shape[0] > 0
+            and eval_log and "wrote" in eval_log[-1]):
+        raise AssertionError("the train loop's run is wrong (see the line above)")
+
+    out = train_loop.train(log_dir, data, cfg, max_steps=LOOP_RESUME)
+    resumed = [line.strip() for line in open(os.path.join(log_dir, "train.log"))
+               if "resumed from checkpoint" in line]
+    ckpts = CheckpointManager(os.path.join(log_dir, "checkpoints")).steps()
+    log(f"[train_loop] resume to {LOOP_RESUME}: {resumed}; checkpoints {ckpts}; loss "
+        f"{out['loss']:.5f}")
+    if not (resumed and resumed[-1].endswith(f"step {LOOP_STEPS}")
+            and out["step"] == LOOP_RESUME and ckpts == [10, LOOP_STEPS, LOOP_RESUME]):
+        raise AssertionError("the resume did not continue from step 12")
+    resume_ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints")).path(LOOP_RESUME)
+
+    # timed: the Feeder, then each variant from the same checkpoint
+    end = LOOP_RESUME + LOOP_TIMED
+    loop_ms, prof = _loop_window(log_dir, data, "", LOOP_RESUME, end)
+    log(_window_line(f"Feeder, steps {LOOP_RESUME + 3}-{end - LOOP_PROFILED}", loop_ms,
+                     prof, bare_step_s))
+    for n, (label, pipeline, workers, ov) in enumerate(LOOP_VARIANTS):
+        vdir = os.path.join(base, f"logs-v{n}")
+        os.makedirs(os.path.join(vdir, "checkpoints"))
+        shutil.copy(resume_ckpt, os.path.join(vdir, "checkpoints"))
+        ms, vprof = _loop_window(vdir, data, ov, LOOP_RESUME, end, pipeline=pipeline,
+                                 pipeline_workers=workers)
+        log(_window_line(f"{label}, steps {LOOP_RESUME + 3}-{end - LOOP_PROFILED}", ms,
+                         vprof, bare_step_s))
+
+    # where the loop's step goes.  The native assembler: it must build
+    # here (a failed g++ build fails the run), and its batches equal
+    # the numpy path's bit for bit
+    feeder = Feeder(data, cfg)
+    numpy_feeder = Feeder(data, cfg, use_native=False)
+    if not feeder.use_native:
+        raise AssertionError(f"the native batch assembler did not build: "
+                             f"{native_batcher.build_error()}")
+    same = [_batches_equal(feeder.materialize(e), numpy_feeder.materialize(e))
+            for e in plan]
+    log(f"[train_loop] native assembler batches equal to the numpy path's, bit for bit: "
+        f"{same} (epoch 0's {len(plan)} batches)")
+    if not all(same):
+        raise AssertionError("the native assembler's batches differ from the numpy path's")
+    timed = {}
+    for name, f in (("native", feeder), ("numpy", numpy_feeder),
+                    ("native into pinned memory", Feeder(data, cfg, empty=pinned_empty))):
         t0 = time.perf_counter()
-        out = train_loop.train(log_dir, data, cfg, max_steps=LOOP_STEPS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        total = read_counts()
-        want = {k: LOOP_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
-        for k, v in path_launches("serve", cfg, cfg.model.max_iters).items():
-            want[k] += v                                 # the eval request at step 10
-        if total != want:
-            raise AssertionError(f"train loop launches {total}, expected {want}")
-        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
-            summaries = [json.loads(line) for line in f]
-        ckpts = CheckpointManager(os.path.join(log_dir, "checkpoints")).steps()
-        wav = os.path.join(log_dir, "step-10-audio.wav")
-        rate, pcm = wavfile.read(wav)
-        eval_log = [line.strip() for line in open(os.path.join(log_dir, "train.log"))
-                    if "eval artifact" in line]
-        log(f"[train_loop] multispeaker_vctk B=32, {LOOP_STEPS} steps in {wall:.2f} s "
-            f"(setup included): losses " + ", ".join(f"{r['step']}: {r['loss']:.5f}"
-                                                     for r in summaries)
-            + f"; checkpoints {ckpts}; eval WAV {pcm.shape[0]} samples at {rate} Hz; "
-            f"{eval_log}; launches {json.dumps(total)}")
-        if not (out["step"] == LOOP_STEPS and ckpts == [10, LOOP_STEPS]
-                and [r["step"] for r in summaries] == [1, 2, 3, 4, 5]
-                and all(math.isfinite(r["loss"]) for r in summaries)
-                and math.isfinite(out["loss"])
-                and rate == cfg.audio.sample_rate and pcm.shape[0] > 0
-                and eval_log and "wrote" in eval_log[-1]):
-            raise AssertionError("the train loop's run is wrong (see the line above)")
-
-        out = train_loop.train(log_dir, data, cfg, max_steps=LOOP_RESUME)
-        resumed = [line.strip() for line in open(os.path.join(log_dir, "train.log"))
-                   if "resumed from checkpoint" in line]
-        ckpts = CheckpointManager(os.path.join(log_dir, "checkpoints")).steps()
-        log(f"[train_loop] resume to {LOOP_RESUME}: {resumed}; checkpoints {ckpts}; loss "
-            f"{out['loss']:.5f}")
-        if not (resumed and resumed[-1].endswith(f"step {LOOP_STEPS}")
-                and out["step"] == LOOP_RESUME and ckpts == [10, LOOP_STEPS, LOOP_RESUME]):
-            raise AssertionError("the resume did not continue from step 12")
-        resume_ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints")).path(LOOP_RESUME)
-
-        # timed: the Feeder, then each variant from the same checkpoint
-        end = LOOP_RESUME + LOOP_TIMED
-        loop_ms, prof = _loop_window(log_dir, data, "", LOOP_RESUME, end)
-        log(_window_line(f"Feeder, steps {LOOP_RESUME + 3}-{end - LOOP_PROFILED}", loop_ms,
-                         prof, bare_step_s))
-        for n, (label, pipeline, workers, ov) in enumerate(LOOP_VARIANTS):
-            vdir = os.path.join(base, f"logs-v{n}")
-            os.makedirs(os.path.join(vdir, "checkpoints"))
-            shutil.copy(resume_ckpt, os.path.join(vdir, "checkpoints"))
-            ms, vprof = _loop_window(vdir, data, ov, LOOP_RESUME, end, pipeline=pipeline,
-                                     pipeline_workers=workers)
-            log(_window_line(f"{label}, steps {LOOP_RESUME + 3}-{end - LOOP_PROFILED}", ms,
-                             vprof, bare_step_s))
-
-        # where the loop's step goes.  The native assembler: it must build
-        # here (a failed g++ build fails the run), and its batches equal
-        # the numpy path's bit for bit
-        feeder = Feeder(data, cfg)
-        numpy_feeder = Feeder(data, cfg, use_native=False)
-        if not feeder.use_native:
-            raise AssertionError(f"the native batch assembler did not build: "
-                                 f"{native_batcher.build_error()}")
-        same = [_batches_equal(feeder.materialize(e), numpy_feeder.materialize(e))
-                for e in plan]
-        log(f"[train_loop] native assembler batches equal to the numpy path's, bit for bit: "
-            f"{same} (epoch 0's {len(plan)} batches)")
-        if not all(same):
-            raise AssertionError("the native assembler's batches differ from the numpy path's")
-        timed = {}
-        for name, f in (("native", feeder), ("numpy", numpy_feeder),
-                        ("native into pinned memory", Feeder(data, cfg, empty=pinned_empty))):
-            t0 = time.perf_counter()
-            host = [f.materialize(e) for e in plan * 2]
-            timed[name] = ((time.perf_counter() - t0) * 1e3 / len(host), host)
-        log("[train_loop] Feeder.materialize a B=32 batch: " + ", ".join(
-            f"{k} {ms:.2f} ms" for k, (ms, _) in timed.items()))
-        rates = []
-        for workers in (0, LOOP_WORKERS):
-            t0 = time.perf_counter()
-            stream = grain_global_batches(data, cfg, worker_count=workers, pin_memory=True,
-                                          timeout=600)
-            try:
+        host = [f.materialize(e) for e in plan * 2]
+        timed[name] = ((time.perf_counter() - t0) * 1e3 / len(host), host)
+    log("[train_loop] Feeder.materialize a B=32 batch: " + ", ".join(
+        f"{k} {ms:.2f} ms" for k, (ms, _) in timed.items()))
+    rates = []
+    for workers in (0, LOOP_WORKERS):
+        t0 = time.perf_counter()
+        stream = grain_global_batches(data, cfg, worker_count=workers, pin_memory=True,
+                                      timeout=600)
+        try:
+            next(stream)
+            t1 = time.perf_counter()
+            warm = 2 * max(workers, 1)           # every worker's first batches
+            for _ in range(warm):
                 next(stream)
-                t1 = time.perf_counter()
-                warm = 2 * max(workers, 1)           # every worker's first batches
-                for _ in range(warm):
-                    next(stream)
-                t2 = time.perf_counter()
-                n_batches = 16
-                for _ in range(n_batches):
-                    next(stream)
-                t3 = time.perf_counter()
-            finally:
-                stream.close()
-            rates.append(f"{workers} workers {n_batches / (t3 - t2):.2f} batches/s (first "
-                         f"batch, startup included, {t1 - t0:.2f} s; the next {warm} "
-                         f"{t2 - t1:.2f} s)")
-        log("[train_loop] the grain loader alone, pinned batches: " + "; ".join(rates))
-        copy_ms = {}
-        for name, key, non_blocking in (("pageable", "native", False),
-                                        ("pinned", "native into pinned memory", True)):
-            dts = []
-            for hb in timed[key][1]:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                train_loop.batch_to_device(hb, "cuda", non_blocking=non_blocking)
-                torch.cuda.synchronize()
-                dts.append((time.perf_counter() - t0) * 1e3)
-            copy_ms[name] = sum(dts) / len(dts)
-        host = timed["native"][1]
-        nbytes = sum(hb.mel_targets.nbytes + hb.linear_targets.nbytes for hb in host) / len(host)
-        log(f"[train_loop] the copy to the card alone, {nbytes / 1e6:.1f} MB of targets a "
-            f"batch: pageable {copy_ms['pageable']:.2f} ms, pinned {copy_ms['pinned']:.2f} ms "
-            f"({nbytes / copy_ms['pinned'] / 1e6:.2f} GB/s)")
+            t2 = time.perf_counter()
+            n_batches = 16
+            for _ in range(n_batches):
+                next(stream)
+            t3 = time.perf_counter()
+        finally:
+            stream.close()
+        rates.append(f"{workers} workers {n_batches / (t3 - t2):.2f} batches/s (first "
+                     f"batch, startup included, {t1 - t0:.2f} s; the next {warm} "
+                     f"{t2 - t1:.2f} s)")
+    log("[train_loop] the grain loader alone, pinned batches: " + "; ".join(rates))
+    copy_ms = {}
+    for name, key, non_blocking in (("pageable", "native", False),
+                                    ("pinned", "native into pinned memory", True)):
+        dts = []
+        for hb in timed[key][1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_loop.batch_to_device(hb, "cuda", non_blocking=non_blocking)
+            torch.cuda.synchronize()
+            dts.append((time.perf_counter() - t0) * 1e3)
+        copy_ms[name] = sum(dts) / len(dts)
+    host = timed["native"][1]
+    nbytes = sum(hb.mel_targets.nbytes + hb.linear_targets.nbytes for hb in host) / len(host)
+    log(f"[train_loop] the copy to the card alone, {nbytes / 1e6:.1f} MB of targets a "
+        f"batch: pageable {copy_ms['pageable']:.2f} ms, pinned {copy_ms['pinned']:.2f} ms "
+        f"({nbytes / copy_ms['pinned'] / 1e6:.2f} GB/s)")
 
-        # the PCM targets: derived on the card against the offline features
-        # of the same utterances (the JAX gate: max < 0.01, 90th pct < 2e-4)
-        # on every frame whose window lies inside its utterance; the last
-        # few frames of each see the batch's zero padding where the offline
-        # analysis reflects the utterance, and are reported apart
-        wcfg = get_config("multispeaker_vctk", "train.targets_from_wav=true")
-        pb = Feeder(data, wcfg).materialize(plan[0])
-        pcm_dev = torch.as_tensor(pb.mel_targets).cuda()
-        mel, lin = derive_wav_targets(pcm_dev, wcfg)
-        derive_ms = cuda_time_ms(lambda: derive_wav_targets(pcm_dev, wcfg), reps=5)
-        ref = numpy_feeder.materialize(plan[0])
-        a = wcfg.audio
-        reach = (a.n_fft - a.win_length) // 2 - a.n_fft // 2 + a.win_length
-        diffs = {"mel": [], "linear": []}
-        tails = {"mel": [0.0], "linear": [0.0]}
-        for b, i in enumerate(plan[0][2]):
-            n = int(ref.target_lengths[b])
-            samples = np.load(os.path.join(data, preprocess.wav_file_for(feeder.meta[i]))).shape[0]
-            inside = min(n, max(0, (samples - reach) // a.hop_length + 1))
-            for name, got, want in (("mel", mel, ref.mel_targets), ("linear", lin,
-                                                                   ref.linear_targets)):
-                d = np.abs(got[b, :n].cpu().numpy() - want[b, :n])
-                diffs[name].append(d[:inside].ravel())
-                tails[name].append(float(d[inside:].max()) if inside < n else 0.0)
-        worst = {k: (float(np.concatenate(v).max()), float(np.percentile(np.concatenate(v), 90)))
-                 for k, v in diffs.items()}
-        log(f"[train_loop] PCM targets: {pb.mel_targets.nbytes / 1e6:.1f} MB a batch (int16 "
-            f"{tuple(pb.mel_targets.shape)}); derive_wav_targets on the card {derive_ms:.2f} ms "
-            f"(B=32 T={ref.mel_targets.shape[1]}); against the offline features, frames inside "
-            f"their utterance: " + ", ".join(f"{k} max {m:.2e} p90 {p:.2e}"
-                                             for k, (m, p) in worst.items())
-            + " (tol max 1e-2, p90 2e-4); the last frames, whose window reaches the batch's "
-            "padding: " + ", ".join(f"{k} max {max(v):.2e}" for k, v in tails.items()))
-        if not all(m < 1e-2 and p < 2e-4 for m, p in worst.values()):
-            raise AssertionError("derived targets disagree with the offline features")
-        del pcm_dev, mel, lin
+    # the PCM targets: derived on the card against the offline features
+    # of the same utterances (the JAX gate: max < 0.01, 90th pct < 2e-4)
+    # on every frame whose window lies inside its utterance; the last
+    # few frames of each see the batch's zero padding where the offline
+    # analysis reflects the utterance, and are reported apart
+    wcfg = get_config("multispeaker_vctk", "train.targets_from_wav=true")
+    pb = Feeder(data, wcfg).materialize(plan[0])
+    pcm_dev = torch.as_tensor(pb.mel_targets).cuda()
+    mel, lin = derive_wav_targets(pcm_dev, wcfg)
+    derive_ms = cuda_time_ms(lambda: derive_wav_targets(pcm_dev, wcfg), reps=5)
+    ref = numpy_feeder.materialize(plan[0])
+    a = wcfg.audio
+    reach = (a.n_fft - a.win_length) // 2 - a.n_fft // 2 + a.win_length
+    diffs = {"mel": [], "linear": []}
+    tails = {"mel": [0.0], "linear": [0.0]}
+    for b, i in enumerate(plan[0][2]):
+        n = int(ref.target_lengths[b])
+        samples = np.load(os.path.join(data, preprocess.wav_file_for(feeder.meta[i]))).shape[0]
+        inside = min(n, max(0, (samples - reach) // a.hop_length + 1))
+        for name, got, want in (("mel", mel, ref.mel_targets), ("linear", lin,
+                                                               ref.linear_targets)):
+            d = np.abs(got[b, :n].cpu().numpy() - want[b, :n])
+            diffs[name].append(d[:inside].ravel())
+            tails[name].append(float(d[inside:].max()) if inside < n else 0.0)
+    worst = {k: (float(np.concatenate(v).max()), float(np.percentile(np.concatenate(v), 90)))
+             for k, v in diffs.items()}
+    log(f"[train_loop] PCM targets: {pb.mel_targets.nbytes / 1e6:.1f} MB a batch (int16 "
+        f"{tuple(pb.mel_targets.shape)}); derive_wav_targets on the card {derive_ms:.2f} ms "
+        f"(B=32 T={ref.mel_targets.shape[1]}); against the offline features, frames inside "
+        f"their utterance: " + ", ".join(f"{k} max {m:.2e} p90 {p:.2e}"
+                                         for k, (m, p) in worst.items())
+        + " (tol max 1e-2, p90 2e-4); the last frames, whose window reaches the batch's "
+        "padding: " + ", ".join(f"{k} max {max(v):.2e}" for k, v in tails.items()))
+    if not all(m < 1e-2 and p < 2e-4 for m, p in worst.values()):
+        raise AssertionError("derived targets disagree with the offline features")
+    del pcm_dev, mel, lin
 
-        model, state = create_train_state(cfg, cfg.train.seed)
-        step_fn = make_train_step(cfg, model)
-        state, m = step_fn(state, *train_loop.batch_to_device(host[0], "cuda"))  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for hb in host:
-            state, m = step_fn(state, *train_loop.batch_to_device(hb, "cuda"))
-        float(m["loss"])
-        fed_ms = (time.perf_counter() - t0) * 1e3 / len(host)
-        del model, state, step_fn
-        log(f"[train_loop] a loop step's parts, over the epoch's batches (T "
-            f"{[e[4] for e in plan]}): Feeder.materialize alone {timed['native'][0]:.2f} ms a "
-            f"batch (native); the copy to the card alone {copy_ms['pageable']:.2f} ms a batch "
-            f"(pageable), {copy_ms['pinned']:.2f} (pinned); steps fed from batches made "
-            f"beforehand {fed_ms:.2f} ms a step (pageable copy included); the loop on the "
-            f"Feeder {loop_ms:.2f} ms a step")
+    model, state = create_train_state(cfg, cfg.train.seed)
+    step_fn = make_train_step(cfg, model)
+    state, m = step_fn(state, *train_loop.batch_to_device(host[0], "cuda"))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for hb in host:
+        state, m = step_fn(state, *train_loop.batch_to_device(hb, "cuda"))
+    float(m["loss"])
+    fed_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    del model, state, step_fn
+    log(f"[train_loop] a loop step's parts, over the epoch's batches (T "
+        f"{[e[4] for e in plan]}): Feeder.materialize alone {timed['native'][0]:.2f} ms a "
+        f"batch (native); the copy to the card alone {copy_ms['pageable']:.2f} ms a batch "
+        f"(pageable), {copy_ms['pinned']:.2f} (pinned); steps fed from batches made "
+        f"beforehand {fed_ms:.2f} ms a step (pageable copy included); the loop on the "
+        f"Feeder {loop_ms:.2f} ms a step")
 
-        _run_cli(base, "cli", [])
-        _run_cli(base, "cli-grain", ["--pipeline", "grain", "--pipeline_workers", "2"])
-    finally:
-        shutil.rmtree(base, ignore_errors=True)
+    _run_cli(base, "cli", [])
+    _run_cli(base, "cli-grain", ["--pipeline", "grain", "--pipeline_workers", "2"])
     torch.cuda.empty_cache()
     return total
 
@@ -3217,6 +3215,292 @@ def phase_shard():
 
 
 # --------------------------------------------------------------------------
+# phase 9: sharded training
+# --------------------------------------------------------------------------
+
+# the f32 checks against the single-process step on the card: (preset, mesh
+# (data, model), global batch, the route make_sharded_train_step takes);
+# dropout off and cross-replica BatchNorm, so each equals the one-process step
+PAR_CHECKS = {
+    "train_dp": ("multispeaker_vctk", (4, 1), 8, "data_parallel"),
+    "train_hybrid": ("large_multispeaker", (1, 4), 8, "hybrid"),
+    "replicated": ("large_multispeaker", (2, 2), 6, "replicated"),
+}
+PAR_CHECK_OV = ("model.compute_dtype=float32,model.prenet_dropout=0.0,"
+                "parallel.bn_cross_replica=true")
+PAR_CHECK_L, PAR_CHECK_T = 23, 40
+# the full-width bf16 paths: (preset, mesh, global batch)
+TRAIN_PAR_PATHS = {
+    "train_dp": ("multispeaker_vctk", (4, 1), 32),
+    "train_hybrid": ("large_multispeaker", (1, 4), 64),
+}
+TRAIN_PAR_STEPS = 4         # timed steps a path (after one warm-up)
+PAR_L, PAR_T = 192, 1000
+
+
+def _train_leaves(model):
+    """(parameters, their gradients, BatchNorm running statistics) on the CPU."""
+    return ({n: p.detach().cpu() for n, p in model.named_parameters()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: b.detach().cpu() for n, b in model.named_buffers()
+             if n.endswith((".mean", ".var"))})
+
+
+def _par_check_errors(ref, got, shards, lr):
+    """This rank's one f32 step against the single-process one: relative
+    loss and grad-norm errors, the whole gradient's relative L2 distance,
+    the worst gradient leaf (relative to its peak, floored at 1e-3 of the
+    largest gradient) and its name, the worst running statistic (relative)
+    and the largest parameter move apart (absolute); the sharded table
+    against its rows of the reference."""
+    (m_ref, (p_ref, g_ref, b_ref)), (m, (p, g, b)) = ref, got
+    rows = shards.get("speaker_table.weight")
+    cut = lambda n, t: t[rows] if rows is not None and n == "speaker_table.weight" else t
+    peak = max(t.abs().max().item() for t in g_ref.values())
+    leaf = {n: ((g[n] - cut(n, t)).abs().max()
+                / max(cut(n, t).abs().max().item(), 1e-3 * peak)).item()
+            for n, t in g_ref.items()}
+    worst = max(leaf, key=leaf.get)
+    sq = lambda d: sum((t.double() ** 2).sum().item() for t in d.values())
+    return {
+        "loss": abs(m["loss"] - m_ref["loss"]) / abs(m_ref["loss"]),
+        "grad_norm": abs(m["grad_norm"] - m_ref["grad_norm"]) / m_ref["grad_norm"],
+        "grad_l2": (sq({n: g[n] - cut(n, t) for n, t in g_ref.items()})
+                    / sq({n: cut(n, t) for n, t in g_ref.items()})) ** 0.5,
+        "grad": leaf[worst], "worst_leaf": worst,
+        "stats": max(_rel_err(b[n], t) for n, t in b_ref.items()),
+        "params": max((p[n] - cut(n, t)).abs().max().item() for n, t in p_ref.items()),
+        "param_tol": 2.5 * lr, "table_rows": tuple(p["speaker_table.weight"].shape)}
+
+
+def _train_parallel_rank(rank, refs, batches, data, log_root):
+    """One rank of phase 9: the f32 checks (each against the reference step
+    in ``refs``), then each path of ``TRAIN_PAR_PATHS`` (a warm-up and timed
+    steps, this rank's launches checked per step, the gradient all-reduce
+    timed alone, a profiled step on rank 0), then ``train_loop.train`` to
+    ``LOOP_STEPS`` and a resume to ``LOOP_RESUME`` on phase 7b's corpus.
+    Counts are set to 0 just before each path's run and read just after."""
+    import torch
+    import torch.distributed as dist
+    from tacotron_multispeaker_torch import train_loop, training
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.parallel import make_mesh
+    from tacotron_multispeaker_torch.parallel.distributed import all_reduce_coalesced
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": dist.get_backend(), "checks": {}}
+    for name, (preset, (n_data, n_model), B, route) in PAR_CHECKS.items():
+        cfg = get_config(preset, f"{PAR_CHECK_OV},train.batch_size={B}")
+        mesh = make_mesh(cfg.parallel, data=n_data, model=n_model)
+        if training.train_route(cfg, mesh) != route:
+            raise AssertionError(f"{name}: route {training.train_route(cfg, mesh)}, not {route}")
+        model, state = training.create_train_state(cfg, seed=1, mesh=mesh)
+        step = training.make_sharded_train_step(cfg, model, mesh)
+        index, count = training.batch_slice(cfg, mesh)
+        n = B // count
+        state, m = step(state, *(a[index * n:(index + 1) * n].to(mesh.device)
+                                 for a in batches[name]))
+        got = ({k: float(m[k]) for k in ("loss", "grad_norm")}, _train_leaves(model))
+        out["checks"][name] = _par_check_errors(
+            refs[name], got, state.shards, training.learning_rate_schedule(cfg)(0))
+        del model, state, step
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+
+    for path, (preset, (n_data, n_model), B) in TRAIN_PAR_PATHS.items():
+        cfg = get_config(preset, f"train.batch_size={B}")
+        mesh = make_mesh(cfg.parallel, data=n_data, model=n_model)
+        model, state = training.create_train_state(cfg, seed=0, mesh=mesh)
+        step = training.make_sharded_train_step(cfg, model, mesh)
+        index, count = training.batch_slice(cfg, mesh)
+        batch = _train_batch(cfg, B // count, PAR_L, PAR_T, seed=30 + index, device=mesh.device)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times, launches, losses = [], [], []
+        for n in range(1 + TRAIN_PAR_STEPS):
+            before = read_counts()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, *batch)
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+            times.append(time.perf_counter() - t0)
+            launches.append(_delta(before))
+        total = read_counts()
+        if any(got != TRAIN_LAUNCHES for got in launches):
+            raise AssertionError(f"{path}: rank {rank} launches {launches}, expected "
+                                 f"{TRAIN_LAUNCHES} a step")
+        if not all(math.isfinite(x) for pair in losses for x in pair):
+            raise AssertionError(f"{path}: rank {rank} losses {losses}")
+        # the step's gradient all-reduce alone: the replicated gradients'
+        # one flat buffer over the whole mesh
+        grads = [p.grad.clone() for name, p in model.named_parameters()
+                 if name not in state.shards]
+        group = mesh.data_group if n_model == 1 else mesh.world_group
+        ar = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_coalesced(grads, group)
+            torch.cuda.synchronize()
+            ar.append((time.perf_counter() - t0) * 1e3)
+        one_step = lambda: (step(state, *batch), torch.cuda.synchronize())
+        if rank == 0:
+            phase_profile([(f"{path} {preset} B={B // count} a rank L={PAR_L} T={PAR_T} "
+                            f"(rank 0 of 4)", one_step)])
+        else:
+            one_step()
+        out[path] = {"times": times, "losses": losses, "launches": total,
+                     "allreduce_ms": sorted(ar)[1], "allreduce_mb": sum(
+                         g.numel() * g.element_size() for g in grads) / 1e6,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "table_rows": tuple(model.speaker_table.weight.shape)}
+        del model, state, step, grads, batch
+        torch.cuda.empty_cache()
+
+    cfg = get_config("multispeaker_vctk", LOOP_OVERRIDES)
+    log_dir = os.path.join(log_root, "logs-train-par")
+    reset_counts()
+    t0 = time.perf_counter()
+    first = train_loop.train(log_dir, data, cfg, max_steps=LOOP_STEPS)
+    resumed = train_loop.train(log_dir, data, cfg, max_steps=LOOP_RESUME)
+    out["train_loop_dp"] = {"launches": read_counts(), "wall_s": time.perf_counter() - t0,
+                            "results": [{k: v for k, v in r.items() if k != "step_seconds"}
+                                        for r in (first, resumed)],
+                            "step_ms": sorted(dt * 1e3 for step, dt in first["step_seconds"]
+                                              if 2 < step <= LOOP_STEPS and step != 11)}
+    return out
+
+
+def phase_train_parallel(base):
+    """Sharded training on four ranks sharing the card (gloo; NCCL where
+    each rank has a card of its own): the f32 data-parallel, hybrid and
+    row-replicated steps (dropout off, cross-replica BatchNorm) against the
+    single-process step on the card from the same weights and batch (loss,
+    grad norm, every all-reduced gradient leaf before Adam, the updated
+    parameters and running statistics); full-width bf16 ``train_dp``
+    (``multispeaker_vctk``, mesh (4, 1), B=32) and ``train_hybrid``
+    (``large_multispeaker``, mesh (1, 4), B=64, 512 table rows a rank), a
+    warm-up and ``TRAIN_PAR_STEPS`` timed steps each, every rank's launches
+    checked per step against ``TRAIN_LAUNCHES``; then ``train_loop_dp``:
+    ``train_loop.train`` on the four ranks from phase 7b's corpus in
+    ``base``, 12 steps with a checkpoint and eval at 10, a resume to 14.
+    Returns each path's launches summed over the four ranks."""
+    import torch
+    from scipy.io import wavfile
+    from tacotron_multispeaker_torch import training
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.parallel import run_ranks
+    from tacotron_multispeaker_torch.utils.checkpoint import CheckpointManager
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    refs, batches = {}, {}
+    for name, (preset, _, B, _) in PAR_CHECKS.items():
+        cfg = get_config(preset, f"{PAR_CHECK_OV},train.batch_size={B}")
+        batches[name] = _train_batch(cfg, B, PAR_CHECK_L, PAR_CHECK_T, seed=6, device="cpu")
+        model, state = training.create_train_state(cfg, seed=1)
+        state, m = training.make_train_step(cfg, model)(state, *(a.cuda() for a in
+                                                                batches[name]))
+        refs[name] = ({k: float(m[k]) for k in ("loss", "grad_norm")}, _train_leaves(model))
+        del model, state
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    data = os.path.join(base, "training")
+    t0 = time.perf_counter()
+    outs = run_ranks(_train_parallel_rank, 4, refs, batches, data, base, timeout=900)
+    log(f"[train_parallel] four ranks on {torch.cuda.device_count()} card(s), "
+        f"{outs[0]['backend']}: {time.perf_counter() - t0:.2f} s")
+    # f32: loss 1e-5 and grad norm 1e-4 relative: the same f32 sums in
+    # other orders (the all-reduces, the BatchNorm statistics as the mean of
+    # the ranks' means).  The gradient: its relative L2 distance 1e-2, each
+    # leaf 5e-2 of its peak (floored at 1e-3 of the largest gradient).  A
+    # ReLU whose pre-activation sits within rounding of 0 can take the other
+    # side at another batch split and moves one position's whole gradient
+    # in or out of the conv below it and everything upstream: measured on
+    # the card at (4, 1), one flip in post_cbhg.proj_0 (|pre| 3.1e-6) gave
+    # an L2 distance of 1.42e-3 and 2.85e-2 of post_cbhg.proj_0.conv.bias's
+    # peak, while (2, 1), without a flip, gave 2.4e-6; a missing all-reduce
+    # is an O(1) error.  Running statistics 5e-5 relative (a mean of four
+    # f32 sums against one).  Parameters after the update: Adam's first step
+    # moves each by about lr·sign(g), so a near-zero gradient whose sign
+    # the sum order flips moves it 2·lr apart: 2.5·lr absolute
+    tol = {"loss": 1e-5, "grad_norm": 1e-4, "grad_l2": 1e-2, "grad": 5e-2, "stats": 5e-5}
+    for name, (preset, (n_data, n_model), B, route) in PAR_CHECKS.items():
+        errs = [o["checks"][name] for o in outs]
+        worst = {k: max(e[k] for e in errs) for k in (*tol, "params")}
+        leaf = max(errs, key=lambda e: e["grad"])["worst_leaf"]
+        log(f"[train_parallel f32] {name}: {preset} mesh ({n_data}, {n_model}) B={B} "
+            f"L={PAR_CHECK_L} T={PAR_CHECK_T} ({route} route; table rows a rank "
+            f"{[e['table_rows'][0] for e in errs]}) against the single-process step on the "
+            f"card, worst over the ranks: loss {worst['loss']:.2e} (tol 1e-5), grad_norm "
+            f"{worst['grad_norm']:.2e} (tol 1e-4), gradient relative L2 {worst['grad_l2']:.2e} "
+            f"(tol 1e-2), gradient leaf {worst['grad']:.2e} ({leaf}; tol 5e-2), running stats "
+            f"{worst['stats']:.2e} (tol 5e-5), params after the update {worst['params']:.2e} "
+            f"(abs, tol {errs[0]['param_tol']:.2e} = 2.5 lr)")
+        if not (all(worst[k] <= t for k, t in tol.items())
+                and worst["params"] <= errs[0]["param_tol"]):
+            raise AssertionError(f"the sharded f32 step {name} disagrees with one process")
+
+    launches = {}
+    for path, (preset, (n_data, n_model), B) in TRAIN_PAR_PATHS.items():
+        per_rank = [o[path] for o in outs]
+        steps = [max(r["times"][n] for r in per_rank) for n in range(1 + TRAIN_PAR_STEPS)]
+        median = sorted(steps[1:])[TRAIN_PAR_STEPS // 2]
+        log(f"[{path}] {preset} mesh ({n_data}, {n_model}) B={B} ({B // (n_data * n_model)} "
+            f"a rank) L={PAR_L} T={PAR_T} bf16, {outs[0]['backend']}: step ms (slowest rank) "
+            f"warm-up {steps[0] * 1e3:.2f}, then " + ", ".join(f"{t * 1e3:.2f}" for t in steps[1:])
+            + f"; median {median * 1e3:.2f} ms ({B / median:.2f} examples/s); gradient "
+            f"all-reduce alone ({per_rank[0]['allreduce_mb']:.1f} MB f32, one flat buffer) "
+            + ", ".join(f"{r['allreduce_ms']:.2f}" for r in per_rank) + " ms a rank; peak "
+            "memory " + ", ".join(f"{r['peak_gib']:.2f}" for r in per_rank) + " GiB a rank; "
+            f"table rows a rank {[r['table_rows'][0] for r in per_rank]}; losses (rank 0) "
+            + ", ".join(f"{lo:.5f}" for lo, _ in per_rank[0]["losses"]))
+        if any(r["losses"] != per_rank[0]["losses"] for r in per_rank):
+            raise AssertionError(f"{path}: the ranks' losses differ")
+        launches[path] = {k: sum(r["launches"][k] for r in per_rank) for k in _counters()}
+        log(f"[{path}] launches over the run, summed over the 4 ranks: "
+            f"{json.dumps(launches[path])}")
+
+    cfg = get_config("multispeaker_vctk", LOOP_OVERRIDES)
+    log_dir = os.path.join(base, "logs-train-par")
+    per_rank = [o["train_loop_dp"] for o in outs]
+    for rank, r in enumerate(per_rank):
+        want = {k: LOOP_RESUME * v for k, v in TRAIN_LAUNCHES.items()}
+        if rank == 0:
+            for k, v in path_launches("serve", cfg, cfg.model.max_iters).items():
+                want[k] += v                             # the eval request at step 10
+        if r["launches"] != want:
+            raise AssertionError(f"train_loop_dp: rank {rank} launches {r['launches']}, "
+                                 f"expected {want}")
+    ckpts = CheckpointManager(os.path.join(log_dir, "checkpoints")).steps()
+    rate, pcm = wavfile.read(os.path.join(log_dir, "step-10-audio.wav"))
+    text = open(os.path.join(log_dir, "train.log")).read()
+    results = [r["results"] for r in per_rank]
+    steady = per_rank[0]["step_ms"]
+    log(f"[train_loop_dp] train_loop.train on 4 ranks, multispeaker_vctk B=32 (8 a rank), "
+        f"{LOOP_STEPS} steps and a resume to {LOOP_RESUME} in {per_rank[0]['wall_s']:.2f} s "
+        f"(setup included): final losses " + ", ".join(
+            f"{r[0]['loss']:.5f} / {r[1]['loss']:.5f}" for r in results)
+        + f" a rank; rank 0's steps 3-12 but 11 (the first after the checkpoint) "
+        f"{steady[0]:.2f}-{steady[-1]:.2f} ms, median {steady[len(steady) // 2]:.2f}; "
+        f"checkpoints {ckpts}; eval WAV {pcm.shape[0]} samples at {rate} Hz")
+    if not (all(r == results[0] for r in results) and results[0][1]["step"] == LOOP_RESUME
+            and all(math.isfinite(x["loss"]) for x in results[0])
+            and ckpts == [10, LOOP_STEPS, LOOP_RESUME] and rate == cfg.audio.sample_rate
+            and pcm.shape[0] > 0 and "wrote eval artifacts for step 10" in text
+            and f"resumed from checkpoint at step {LOOP_STEPS}" in text):
+        raise AssertionError("the four-rank train loop's run is wrong (see the line above)")
+    launches["train_loop_dp"] = {k: sum(r["launches"][k] for r in per_rank)
+                                 for k in _counters()}
+    log(f"[train_loop_dp] launches over the run, summed over the 4 ranks: "
+        f"{json.dumps(launches['train_loop_dp'])}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 6: where the time goes
 # --------------------------------------------------------------------------
 
@@ -3333,13 +3617,19 @@ def main() -> int:
     phase_train_bf16()
     launches["train"], bare_step_s = phase_train()
     launches["gru"] = phase_gru()
-    launches["train_loop"] = phase_train_loop(bare_step_s)
-    launches.update(phase_shard())
+    base = tempfile.mkdtemp(prefix="train_loop-")
+    try:
+        launches["train_loop"] = phase_train_loop(bare_step_s, base)
+        launches.update(phase_shard())
+        launches.update(phase_train_parallel(base))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    paths = (*PATHS, "train", "gru", "train_loop", *SHARD_PATHS, *TRAIN_PAR_PATHS,
+             "train_loop_dp")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[path][name], "launches_by_path": {
-             p: launches[p][name] for p in (*PATHS, "train", "gru", "train_loop",
-                                            *SHARD_PATHS)},
+             p: launches[p][name] for p in paths},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name].get("library_ms"),
@@ -3353,12 +3643,10 @@ def main() -> int:
                      "plain_ms_full", "ms_device_full_b1", "ms_device_fma",
                      "library_f32_ms", "by_launch")},
          **({} if f"{name}_fma" not in launches["train"] else {"fma_route_launches_by_path": {
-             p: launches[p][f"{name}_fma"] for p in (*PATHS, "train", "gru", "train_loop",
-                                                      *SHARD_PATHS)}}),
+             p: launches[p][f"{name}_fma"] for p in paths}}),
          **({} if f"{name}_direct" not in launches["train"] else {
              "direct_route_launches_by_path": {
-                 p: launches[p][f"{name}_direct"] for p in (*PATHS, "train", "gru",
-                                                             "train_loop", *SHARD_PATHS)}}),
+                 p: launches[p][f"{name}_direct"] for p in paths}}),
          "shape": kern[name]["shape"]}
         for name, (src, replaces, path) in KERNEL_META.items()]}
     log(smi)

@@ -6,10 +6,12 @@ from .tacotron import Tacotron, TacotronOutput  # noqa: F401
 _MODELS = {"tacotron": Tacotron}
 
 
-def create_model(name: str, cfg, seq_mesh=None) -> Tacotron:
+def create_model(name: str, cfg, seq_mesh=None, bn_group=None) -> Tacotron:
     """The model ``name`` for ``cfg``, on the CPU, with uninitialised weights
     (``Tacotron.reset_parameters`` draws them, or load a state dict).
-    ``seq_mesh``: the sequence-sharded decode over the mesh's model axis."""
+    ``seq_mesh``: the sequence-sharded decode over the mesh's model axis.
+    ``bn_group``: a process group over which the BatchNorms take their
+    training statistics (the JAX ``bn_axis``)."""
     if name not in _MODELS:
         raise ValueError(f"unknown model {name!r}; options: {sorted(_MODELS)}")
-    return _MODELS[name](cfg, seq_mesh=seq_mesh)
+    return _MODELS[name](cfg, seq_mesh=seq_mesh, bn_group=bn_group)

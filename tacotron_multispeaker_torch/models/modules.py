@@ -21,11 +21,13 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv_bank as cb_ops
 from ..ops import gru_scan
+from ..parallel.distributed import psum
 
 
 class Dense(nn.Linear):
@@ -59,15 +61,21 @@ class BatchNorm(nn.Module):
     over every axis but the last, pad frames included; var = E[x²] − mean²
     clipped at 0; running statistics ``0.99·old + 0.01·batch`` with the
     biased var (``F.batch_norm`` would store the unbiased one, hence the
-    update written out)."""
+    update written out).
+
+    ``group`` (a process group: flax's ``axis_name``): cross-replica
+    statistics, the mean and E[x²] of every rank of the group, through ONE
+    differentiable all-reduce of the two concatenated (flax's one ``pmean``),
+    so the gradient reaches each rank's share of the statistics."""
 
     momentum = 0.99   # flax BatchNorm(momentum=0.99) in every layer of the model
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
-                 eps: float = 1e-3):
+                 eps: float = 1e-3, group=None):
         super().__init__()
         self.compute_dtype = dtype
         self.eps = eps
+        self.group = group
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -77,8 +85,12 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, mean2 = xf.mean(axes), (xf * xf).mean(axes)
+            if self.group is not None:
+                stats = psum(torch.cat([mean, mean2]), self.group) / dist.get_world_size(
+                    self.group)
+                mean, mean2 = stats.chunk(2)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
@@ -146,12 +158,12 @@ class ConvBN(nn.Module):
     """conv1d (SAME) → activation → batch-norm, on [B, T, C]."""
 
     def __init__(self, in_channels: int, width: int, channels: int,
-                 activation: bool = True, dtype: torch.dtype = torch.float32):
+                 activation: bool = True, dtype: torch.dtype = torch.float32, bn_group=None):
         super().__init__()
         self.compute_dtype = dtype
         self.activation = activation
         self.conv = nn.Conv1d(in_channels, channels, width)
-        self.bn = BatchNorm(channels, dtype)
+        self.bn = BatchNorm(channels, dtype, group=bn_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -183,7 +195,8 @@ class ConvBank(nn.Module):
     compute dtype before the f32 bias and ReLU, as the JAX XLA path does."""
 
     def __init__(self, in_channels: int, bank_k: int, channels: int,
-                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False,
+                 bn_group=None):
         super().__init__()
         self.compute_dtype = dtype
         self.use_pallas = use_pallas
@@ -193,7 +206,7 @@ class ConvBank(nn.Module):
         self.bias = nn.Parameter(torch.zeros(bank_k * channels))
         mask = torch.from_numpy(_bank_mask(bank_k, channels)).permute(2, 1, 0)
         self.register_buffer("mask", mask.contiguous(), persistent=False)
-        self.bn = BatchNorm(bank_k * channels, dtype)
+        self.bn = BatchNorm(bank_k * channels, dtype, group=bn_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -349,17 +362,20 @@ class CBHG(nn.Module):
     """Conv Bank + Highway + BiGRU: bank (widths 1..K) → maxpool(2, 1,
     SAME) → two width-3 conv projections + residual → [dim-match Dense] →
     N× highway → BiGRU.  Padded positions are zeroed before every conv.
-    ``use_pallas`` routes the bank through its kernel (:class:`ConvBank`)."""
+    ``use_pallas`` routes the bank through its kernel (:class:`ConvBank`);
+    ``bn_group`` gives its three BatchNorms cross-replica statistics."""
 
     def __init__(self, in_dim: int, bank_k: int, bank_channels: int,
                  proj_channels: Sequence[int], highway_layers: int,
                  highway_depth: int, gru_units: int,
-                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False,
+                 bn_group=None):
         super().__init__()
         self.highway_layers = highway_layers
-        self.bank = ConvBank(in_dim, bank_k, bank_channels, dtype, use_pallas)
-        self.proj_0 = ConvBN(bank_k * bank_channels, 3, proj_channels[0], True, dtype)
-        self.proj_1 = ConvBN(proj_channels[0], 3, proj_channels[1], False, dtype)
+        self.bank = ConvBank(in_dim, bank_k, bank_channels, dtype, use_pallas, bn_group)
+        self.proj_0 = ConvBN(bank_k * bank_channels, 3, proj_channels[0], True, dtype,
+                             bn_group)
+        self.proj_1 = ConvBN(proj_channels[0], 3, proj_channels[1], False, dtype, bn_group)
         if proj_channels[1] != highway_depth:
             self.highway_in = Dense(proj_channels[1], highway_depth, dtype=dtype)
         else:

@@ -24,7 +24,8 @@ the slices across the mesh's model axis (models/attention.py).
 BatchNorms (batch statistics and running-statistic updates in training
 mode); ``generate`` always uses the running statistics, as the JAX
 package's ``generate(train=False)`` default does.  Prenet dropout is on in
-both modes.
+both modes.  ``bn_group`` (a process group: the JAX ``bn_axis``) gives every
+BatchNorm cross-replica statistics in training mode.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ def _speaker_dim(cfg: Config, point: str) -> int:
 class Encoder(nn.Module):
     """Char embedding (+speaker concat) → prenet → CBHG memory."""
 
-    def __init__(self, cfg: Config, dtype: torch.dtype):
+    def __init__(self, cfg: Config, dtype: torch.dtype, bn_group=None):
         super().__init__()
         m = cfg.model
         self.cfg = cfg
@@ -85,7 +86,8 @@ class Encoder(nn.Module):
         self.cbhg = CBHG(m.prenet_depths[-1], m.encoder_bank_k,
                          m.encoder_bank_channels, m.encoder_proj_channels,
                          m.encoder_highway_layers, highway_depth=half,
-                         gru_units=half, dtype=dtype, use_pallas=cfg.parallel.use_pallas)
+                         gru_units=half, dtype=dtype, use_pallas=cfg.parallel.use_pallas,
+                         bn_group=bn_group)
 
     def forward(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                 speaker_embed: torch.Tensor | None,
@@ -150,14 +152,14 @@ class Tacotron(nn.Module):
     """The full model; ``forward`` is the teacher-forced training path,
     ``generate`` the autoregressive inference path."""
 
-    def __init__(self, cfg: Config, seq_mesh=None):
+    def __init__(self, cfg: Config, seq_mesh=None, bn_group=None):
         super().__init__()
         c, m = cfg, cfg.model
         self.cfg = cfg
         self.seq_mesh = seq_mesh
         self.dtype = _compute_dtype(cfg)
         memory_depth = m.encoder_depth + _speaker_dim(cfg, "memory")
-        self.encoder = Encoder(c, self.dtype)
+        self.encoder = Encoder(c, self.dtype, bn_group)
         self.dec_prenet = Prenet(c.audio.num_mels, m.prenet_depths,
                                  m.prenet_dropout, self.dtype)
         self.attention = make_attention(m, memory_depth, self.dtype,
@@ -169,7 +171,7 @@ class Tacotron(nn.Module):
                               m.postnet_bank_channels, m.postnet_proj_channels,
                               m.postnet_highway_layers, highway_depth=half,
                               gru_units=m.postnet_gru_units, dtype=self.dtype,
-                              use_pallas=c.parallel.use_pallas)
+                              use_pallas=c.parallel.use_pallas, bn_group=bn_group)
         self.linear_proj = Dense(2 * m.postnet_gru_units, c.audio.num_freq,
                                  dtype=self.dtype)
         if m.num_speakers > 1:
@@ -309,9 +311,12 @@ class Tacotron(nn.Module):
 
     def teacher_mel(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                     mel_targets: torch.Tensor, speaker_ids: torch.Tensor | None = None,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    speaker_embed: torch.Tensor | None = None):
         """Encoder + teacher-forced decoder to mel (no post-net) →
-        (mel [B, T, M] f32, alignments [B, T/r, L] f32)."""
+        (mel [B, T, M] f32, alignments [B, T/r, L] f32).  ``speaker_embed``
+        [B, E] stands in for the table lookup of ``speaker_ids``, as in
+        :meth:`generate`."""
         m = self.cfg.model
         if m.attention_type != "bahdanau":
             raise NotImplementedError(
@@ -322,7 +327,8 @@ class Tacotron(nn.Module):
         T, M = mel_targets.shape[1], self.cfg.audio.num_mels
         H = m.decoder_depth
         dev = inputs.device
-        spk = self._speaker_embed(speaker_ids)
+        spk = (speaker_embed.to(self.dtype) if speaker_embed is not None
+               else self._speaker_embed(speaker_ids))
         memory = self.encoder(inputs, input_lengths, spk, generator).contiguous()
         keys = self.attention.precompute_keys(memory).contiguous()
         mask = (torch.arange(L, device=dev)[None, :]
@@ -341,16 +347,28 @@ class Tacotron(nn.Module):
 
     def forward(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                 mel_targets: torch.Tensor, speaker_ids: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> TacotronOutput:
+                generator: torch.Generator | None = None,
+                speaker_embed: torch.Tensor | None = None) -> TacotronOutput:
         """Teacher-forced pass (flax ``Tacotron.__call__``).  The post-net
         sees every one of the T frames of every row (target_lengths = T),
         not the batch's lengths, as in the JAX package."""
         mel_out, aligns = self.teacher_mel(inputs, input_lengths, mel_targets,
-                                           speaker_ids, generator)
+                                           speaker_ids, generator, speaker_embed)
         B, T = mel_out.shape[:2]
         target_lengths = torch.full((B,), T, dtype=torch.long, device=mel_out.device)
         linear_out = self._postnet(mel_out, target_lengths)
         return TacotronOutput(mel_out, linear_out, aligns)
+
+    def batch_norms(self) -> list[BatchNorm]:
+        return [mod for mod in self.modules() if isinstance(mod, BatchNorm)]
+
+    def set_bn_group(self, group) -> "Tacotron":
+        """Point every BatchNorm at ``group`` (cross-replica statistics; None
+        is per-rank), as the JAX step builders re-create the model with
+        ``bn_axis``."""
+        for mod in self.batch_norms():
+            mod.group = group
+        return self
 
     # -- autoregressive inference path --------------------------------------
 
@@ -358,7 +376,7 @@ class Tacotron(nn.Module):
     def _running_statistics(self):
         """BatchNorms on their running statistics whatever ``self.training``
         says; their modes come back afterwards."""
-        norms = [(mod, mod.training) for mod in self.modules() if isinstance(mod, BatchNorm)]
+        norms = [(mod, mod.training) for mod in self.batch_norms()]
         for mod, _ in norms:
             mod.training = False
         try:

@@ -11,6 +11,11 @@ the collective backend: NCCL when every rank of the host has a card of its
 own, gloo when ranks share a card (one H100 serving four ranks) or run on
 the CPU.  gloo takes CUDA tensors for the all-reduces and all-gathers used
 here (checked on an H100), so the helpers never stage through the host.
+The sharded train steps use :func:`psum` (differentiable: its backward is
+again a SUM over the group, as ``jax.lax.psum`` transposes), one
+:func:`all_reduce_coalesced` of the gradients a group and one
+:func:`all_reduce_scalars` of the losses; checkpoints gather a sharded
+parameter's rows with :func:`gather_rows`.
 """
 
 from __future__ import annotations
@@ -103,6 +108,60 @@ def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     return out
 
 
+class _SumAllReduce(torch.autograd.Function):
+    """SUM over a group whose backward is again a SUM of the cotangent over
+    the group: the transpose ``jax.lax.psum`` has under
+    ``shard_map(check_vma=False)``."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out, None
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable SUM of ``t`` over ``group`` (its gradient is the SUM
+    of the cotangents over the group); a ``None`` group returns ``t``."""
+    if group is None:
+        return t
+    return _SumAllReduce.apply(t, group)
+
+
+@torch.no_grad()
+def all_reduce_coalesced(tensors, group) -> None:
+    """SUM each tensor over ``group`` in place, through one flat buffer a
+    dtype (one all-reduce for a list of one dtype, such as a step's f32
+    gradients); a ``None`` group leaves them as they are."""
+    if group is None:
+        return
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(part.view_as(t))
+
+
+@torch.no_grad()
+def all_reduce_scalars(values: dict, group) -> dict:
+    """{name: 0-dim tensor} summed over ``group`` in one all-reduce of the
+    stacked values; a ``None`` group returns them as they are."""
+    if group is None:
+        return values
+    stacked = torch.stack([v.detach().float() for v in values.values()])
+    return dict(zip(values, all_reduce(stacked, "sum", group).unbind()))
+
+
 def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group's tensors (all of one shape), concatenated along ``dim`` in
     rank order; a ``None`` group returns ``t``."""
@@ -112,6 +171,27 @@ def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """The group's tensors concatenated along dim 0 in rank order, where the
+    ranks may hold different numbers of rows (an uneven last shard); a
+    ``None`` group returns ``t``.  Every rank of the group must call it."""
+    if group is None:
+        return t
+    n = torch.tensor([t.shape[0]], device=t.device)
+    counts = all_gather(n, 0, group).tolist()
+    most = max(counts)
+    padded = t.new_zeros((most, *t.shape[1:]))
+    padded[:t.shape[0]] = t
+    parts = all_gather(padded, 0, group).split(most)
+    return torch.cat([p[:c] for p, c in zip(parts, counts)])
+
+
+def barrier() -> None:
+    """Wait for every rank of the process group (a single process returns)."""
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def destroy() -> None:

@@ -16,6 +16,10 @@ from . import distributed
 
 
 def _rank_main(rank, fn, world_size, store_dir, device, timeout):
+    if device is not None and torch.device(device).type == "cpu":
+        # CPU ranks share the host's cores: each takes its share of the
+        # intra-op threads instead of one thread a core each
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
     args = torch.load(os.path.join(store_dir, "args.pt"), weights_only=False)
     distributed.initialize_distributed(
         init_method=f"file://{os.path.join(store_dir, 'store')}", world_size=world_size,

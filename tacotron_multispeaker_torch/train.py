@@ -10,6 +10,17 @@ package's ``preprocess.py``) into ``<base_dir>/logs-<name>``, resuming from
 the latest checkpoint there.  Runs on the CUDA device unless given
 ``--device cpu``; the flags are the root ``train.py``'s, with ``--device``
 for ``--platform``.
+
+Sharded training runs one process per rank of a (data, model) mesh built
+from ``cfg.parallel`` (``parallel.model_parallel_size`` ranks on the model
+axis, the rest on the data axis):
+
+    torchrun --standalone --nproc_per_node 4 -m tacotron_multispeaker_torch.train \
+        --base_dir ./runs --preset multispeaker_vctk [--device cpu]
+
+joins the process group from torchrun's variables: NCCL where every rank
+has a card of its own, gloo where ranks share a card or, with ``--device
+cpu``, run on the CPU.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
 
     from .config import get_config
+    from .parallel import distributed
     from .train_loop import train
     cfg = get_config(args.preset, args.hparams)
     run_name = args.name or cfg.name
@@ -50,11 +62,15 @@ def main(argv=None) -> dict:
     if args.profile:
         a, _, b = args.profile.partition(":")
         profile_steps = (int(a), int(b))
-    return train(os.path.join(args.base_dir, f"logs-{run_name}"),
-                 os.path.join(args.base_dir, args.input), cfg, max_steps=args.max_steps,
-                 restore=not args.no_restore, profile_steps=profile_steps,
-                 cmudict_path=args.cmudict_path, pipeline=args.pipeline,
-                 pipeline_workers=args.pipeline_workers, device=args.device)
+    device = distributed.initialize_distributed(device=args.device)
+    try:
+        return train(os.path.join(args.base_dir, f"logs-{run_name}"),
+                     os.path.join(args.base_dir, args.input), cfg, max_steps=args.max_steps,
+                     restore=not args.no_restore, profile_steps=profile_steps,
+                     cmudict_path=args.cmudict_path, pipeline=args.pipeline,
+                     pipeline_workers=args.pipeline_workers, device=device)
+    finally:
+        distributed.destroy()
 
 
 if __name__ == "__main__":

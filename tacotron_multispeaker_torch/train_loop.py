@@ -17,8 +17,18 @@ One host sync every ``sync_every = min(summary_interval, 32)`` steps reads
 the loss and aborts on a non-finite one; summaries at steps ≤ 5 and every
 ``summary_interval``; after a divergence abort no checkpoint is written,
 otherwise the final state is saved.  ``profile_steps=(START, STOP)`` traces
-steps [START, STOP) with ``torch.profiler``.  Not ported yet (ROADMAP.md):
-training on more than one process.
+steps [START, STOP) with ``torch.profiler``.
+
+In a process group (``torchrun``, or ``parallel.initialize_distributed``)
+every rank runs this loop as one position of the (data, model) mesh that
+``parallel.make_mesh`` builds from ``cfg.parallel``: its step is
+``training.make_sharded_train_step``'s, its input pipeline loads only the
+rows of each global batch that the step takes (``training.batch_slice``),
+the checkpoint holds the full state in the single-process layout (written
+by rank 0 from rows gathered over the model axis), and rank 0 evaluates
+from that full state while the others wait at a barrier.  The loss is the
+same on every rank, so the divergence check and the final save take the
+same branch everywhere.
 """
 
 from __future__ import annotations
@@ -32,10 +42,11 @@ import torch
 from .config import Config
 from .data.feeder import Feeder, PrefetchIterator, pinned_empty
 from .device import resolve_device
-from .parallel.distributed import is_primary_host
-from .training import create_train_state, make_train_step
+from .parallel.distributed import barrier, is_primary_host
+from .parallel.mesh import make_mesh
+from .training import batch_slice, create_train_state, make_sharded_train_step, train_route
 from .utils import infolog, plot
-from .utils.checkpoint import CheckpointManager
+from .utils.checkpoint import CheckpointManager, full_state
 from .utils.metrics import MetricsWriter
 
 log = infolog.log
@@ -48,32 +59,47 @@ LOADER_TIMEOUT_S = 600
 def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = None,
           restore: bool = True, profile_steps: tuple[int, int] | None = None,
           cmudict_path: str | None = None, pipeline: str = "feeder",
-          pipeline_workers: int = 0, device=None) -> dict:
+          pipeline_workers: int = 0, device=None, mesh=None) -> dict:
     """Run training; returns the final step and metrics, ``step_seconds``
     (the host time of each of the last ≤ 100 steps, as (step, seconds);
     checkpoints and eval artifacts excluded) and, with ``profile_steps``,
     the profiled window's summary under ``profile``.  ``pipeline``:
     "feeder" or "grain" (``pipeline_workers`` worker processes; 0 is
-    in-process).  ``device=None`` is the CUDA device (raises without one)."""
+    in-process).  ``device=None`` is the CUDA device (raises without one),
+    or in a process group the rank's device.  ``mesh``: the mesh of ranks
+    (default ``parallel.make_mesh(cfg.parallel)``: one rank outside a
+    process group); every rank of it must call ``train``."""
     if pipeline not in ("feeder", "grain"):
         raise ValueError(f"pipeline={pipeline!r}: 'feeder' or 'grain'")
-    if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("training on more than one process is not ported yet "
-                                  "(ROADMAP.md, 'Parallel training')")
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh(cfg.parallel, device=None if device is None
+                         else resolve_device(device))
+    elif device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    if cfg.train.batch_size % mesh.data != 0:
+        raise ValueError(f"train.batch_size={cfg.train.batch_size} must be divisible by "
+                         f"the data-parallel axis size {mesh.data}")
+    dev = resolve_device(mesh.device)
     os.makedirs(log_dir, exist_ok=True)
     infolog.init(os.path.join(log_dir, "train.log"), cfg.name, enabled=is_primary_host())
     log(cfg.debug_string())
     log(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
                             else ""))
+    index, count = batch_slice(cfg, mesh)
+    if mesh.size > 1:
+        log(f"mesh ({mesh.data}, {mesh.model}), {torch.distributed.get_backend()}: "
+            f"{train_route(cfg, mesh)} step, each rank loads 1/{count} of every batch")
 
-    model, state = create_train_state(cfg, cfg.train.seed, device=dev)
+    model, state = create_train_state(cfg, cfg.train.seed, mesh=mesh)
     log(f"initialized model: {sum(p.numel() for p in model.parameters()):,} params")
     ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
     if restore and ckpt.latest_step() is not None:
         ckpt.restore(state)
         log(f"resumed from checkpoint at step {state.step}")
-    step_fn = make_train_step(cfg, model)
+    # read once, before any rank can write: every rank then takes the same
+    # branch at the final save (its gather is collective)
+    saved = set(ckpt.steps())
+    step_fn = make_sharded_train_step(cfg, model, mesh)
 
     writer = MetricsWriter(log_dir, use_tensorboard=os.environ.get("TACOTRON_TB") == "1",
                            enabled=is_primary_host())
@@ -86,10 +112,12 @@ def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = N
         from .data.grain_pipeline import grain_global_batches
         source = grain_global_batches(data_dir, cfg, cmudict_path=cmudict_path,
                                       worker_count=pipeline_workers, pin_memory=pin,
-                                      timeout=LOADER_TIMEOUT_S)
+                                      timeout=LOADER_TIMEOUT_S, process_index=index,
+                                      process_count=count)
     else:
         source = iter(Feeder(data_dir, cfg, cmudict_path=cmudict_path,
-                             empty=pinned_empty if pin else None))
+                             empty=pinned_empty if pin else None, process_index=index,
+                             process_count=count))
     batches = PrefetchIterator(source, prefetch=4)
     feed = DeviceBatches(batches, dev)
 
@@ -147,6 +175,10 @@ def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = N
                 # blow-up is never written as a restorable checkpoint
                 check_finite(float(metrics["loss"]))
                 _checkpoint_and_eval(ckpt, state, step, synth, host_batch, cfg, log_dir)
+                saved.add(step)
+                # the other ranks wait here for rank 0's eval, not inside
+                # the next step's collectives
+                barrier()
                 t_last = time.time()        # the next step's time leaves this out
     finally:
         if prof is not None:
@@ -158,7 +190,7 @@ def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = N
             # checkpoint, and restore=True would resume from it
             log("divergence abort: final state NOT checkpointed; latest restorable "
                 "checkpoint is the last finite one")
-        elif state.step not in ckpt.steps():
+        elif state.step not in saved:
             ckpt.save(state.step, state)
     out = {"step": state.step, **{k: float(v) for k, v in metrics.items()},
            "step_seconds": window}
@@ -217,15 +249,19 @@ class DeviceBatches:
 
 
 def _checkpoint_and_eval(ckpt, state, step, synth, batch, cfg, log_dir):
-    """Save a checkpoint, then synthesize the batch's first example with the
-    training weights and write its WAV, alignments and alignment plot.  A
-    failure of the artifacts is logged and training goes on."""
+    """Save a checkpoint (the full state: every rank gathers, rank 0
+    writes), then, on rank 0, synthesize the batch's first example with the
+    full training weights and write its WAV, alignments and alignment plot.
+    A failure of the artifacts is logged and training goes on; loading the
+    weights into the synthesizer is outside that: a state that does not fit
+    the model raises."""
     log(f"saving checkpoint at step {step}")
-    ckpt.save(step, state)
-    if synth is None:          # non-primary processes only save
+    full = full_state(state)
+    ckpt.save(step, state, full)
+    if synth is None:          # the other ranks only gather
         return
+    synth.model.load_state_dict(full[0], strict=True)
     try:
-        synth.model.load_state_dict(state.model.state_dict())
         dev = synth.device
         row = lambda a: torch.as_tensor(a[:1], device=dev).long()
         fn = synth._make_fn(cfg.model.max_iters)
@@ -242,7 +278,8 @@ def _checkpoint_and_eval(ckpt, state, step, synth, batch, cfg, log_dir):
             log(f"alignment plot not drawn ({e})")
         log(f"wrote eval artifacts for step {step}")
     except Exception as e:  # noqa: BLE001 - eval artifacts must never stop training
-        log(f"eval artifact generation failed: {type(e).__name__}: {e}")
+        rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+        log(f"eval artifact generation failed on rank {rank}: {type(e).__name__}: {e}")
 
 
 def _start_profile(dev):

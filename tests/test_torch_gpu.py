@@ -1388,6 +1388,66 @@ def test_sequence_sharded_synth_on_card_matches_unsharded(cuda):
         np.testing.assert_allclose(wav, wav_r, atol=1e-3 * np.abs(wav_r).max())
 
 
+def _card_dp_rank(rank, cfg, batch):
+    """One rank of a (2, 1) mesh on the card: one data-parallel step on its
+    half of the batch; its metrics, gradients (all-reduced, clipped),
+    parameters and running statistics, and its teacher-forward and BiGRU
+    backward launches."""
+    from tacotron_multispeaker_torch import training
+    torch.backends.cuda.matmul.allow_tf32 = False    # as the cuda fixture sets them
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(cfg.parallel, data=2, model=1)
+    model, state = training.create_train_state(cfg, seed=2, mesh=mesh)
+    step = training.make_sharded_train_step(cfg, model, mesh)
+    n = batch[0].shape[0] // 2
+    before = (ttd.fwd_launches, tgs.bwd_launches)
+    state, m = step(state, *(torch.from_numpy(a[rank * n:(rank + 1) * n]).to(mesh.device)
+                             for a in batch))
+    torch.cuda.synchronize()
+    return _train_result(model, m), (ttd.fwd_launches - before[0], tgs.bwd_launches - before[1])
+
+
+def _train_result(model, m):
+    return ({k: float(m[k]) for k in ("loss", "grad_norm")},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: p.detach().cpu() for n, p in model.named_parameters()},
+            {n: b.detach().cpu() for n, b in model.named_buffers() if n.endswith((".mean", ".var"))})
+
+
+@pytest.mark.gpu
+def test_data_parallel_step_on_card_matches_one_process(cuda):
+    # two gloo ranks sharing the card, f32 tiny model, dropout off,
+    # cross-replica BatchNorm: the data-parallel step (kernels on each
+    # rank's half) against the single-process step on the card.  Loss 1e-5
+    # and grad norm 1e-4 relative; each all-reduced gradient leaf 1e-3 of its
+    # peak (floored at 1e-3 of the largest: other f32 sum orders); running
+    # statistics 1e-5 relative; parameters 2.5·lr absolute (Adam's first step
+    # is about lr·sign(g): a near-zero gradient may flip sign)
+    from tacotron_multispeaker_torch import training
+    cfg = tconfig.get_config("tiny", "model.compute_dtype=float32,model.prenet_dropout=0.0,"
+                             "model.num_speakers=3,train.batch_size=4,"
+                             "parallel.bn_cross_replica=true")
+    batch = train_batch(np.random.RandomState(21), cfg, B=4, L=11, T=20)
+    outs = run_ranks(_card_dp_rank, 2, cfg, batch, timeout=300)
+    model, state = training.create_train_state(cfg, seed=2, device=cuda)
+    state, m = training.make_train_step(cfg, model)(
+        state, *(torch.from_numpy(a).to(cuda) for a in batch))
+    (m_r, g_r, p_r, b_r) = _train_result(model, m)
+    peak = max(g.abs().max().item() for g in g_r.values())
+    lr = training.learning_rate_schedule(cfg)(0)
+    for (m_d, g_d, p_d, b_d), launches in outs:
+        assert launches == (1, 2)          # per step: kernel 6 once, kernel 4 twice
+        assert abs(m_d["loss"] - m_r["loss"]) <= 1e-5 * abs(m_r["loss"])
+        assert abs(m_d["grad_norm"] - m_r["grad_norm"]) <= 1e-4 * m_r["grad_norm"]
+        for k, g in g_r.items():
+            assert (g_d[k] - g).abs().max().item() <= 1e-3 * max(g.abs().max().item(),
+                                                                  1e-3 * peak), k
+        for k, b in b_r.items():
+            assert (b_d[k] - b).abs().max().item() <= 1e-5 * b.abs().max().item(), k
+        for k, p in p_r.items():
+            assert (p_d[k] - p).abs().max().item() <= 2.5 * lr, k
+
+
 @pytest.mark.gpu
 def test_pinned_batches_copy_on_a_side_stream_on_card(cuda):
     # DeviceBatches: the step's inputs equal the host batch (ids as int64,

@@ -148,10 +148,10 @@ def test_checkpoint_manager_keeps_the_newest_five(tmp_path):
 
 
 def test_divergence_abort_writes_no_checkpoint(corpus, tmp_path, monkeypatch):
-    real = train_loop.make_train_step
+    real = train_loop.make_sharded_train_step
 
-    def diverging(cfg, model):
-        step = real(cfg, model)
+    def diverging(cfg, model, mesh):
+        step = real(cfg, model, mesh)
 
         def run(state, *batch):
             state, m = step(state, *batch)
@@ -160,7 +160,7 @@ def test_divergence_abort_writes_no_checkpoint(corpus, tmp_path, monkeypatch):
             return state, m
         return run
 
-    monkeypatch.setattr(train_loop, "make_train_step", diverging)
+    monkeypatch.setattr(train_loop, "make_sharded_train_step", diverging)
     cfg = tconfig.get_config("tiny", OV + ",train.checkpoint_interval=2,train.summary_interval=50")
     log_dir = str(tmp_path / "logs")
     with pytest.raises(FloatingPointError, match="step 3"):

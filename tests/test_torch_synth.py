@@ -140,13 +140,15 @@ def _python_files():
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "gl_ab.py")
+    # a test module that runs only the port (its ranks and the train loop)
+    yield os.path.join(REPO, "tests", "test_torch_parallel_loop.py")
     # the tools that import the port or chip_smoke.py
     for name in ("decoder_variants.py", "decoder_phase_clock.py", "teacher_bwd_variants.py",
                  "gru_bwd_variants.py", "gru_bwd_phase_clock.py", "gru_fwd_variants.py",
                  "gru_fwd_phase_clock.py", "gru_fwd_sigmoid_check.py", "variant_build.py",
                  "attention_variants.py", "attention_phase_clock.py",
                  "attention_plan_sweep.py", "ola_variants.py", "wgrad_variants.py",
-                 "dkeys_variants.py"):
+                 "dkeys_variants.py", "sharded_relu_flips.py"):
         yield os.path.join(REPO, "tools", name)
 
 
@@ -164,6 +166,26 @@ def test_port_sources_import_nothing_of_jax():
             bad += [f"{os.path.relpath(path, REPO)}: {n}" for n in names
                     if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("name", ["test_torch_parallel.py", "test_torch_parallel_train.py"])
+def test_rank_modules_import_jax_only_inside_functions(name):
+    """A test module whose ranks are spawned is imported by every rank: its
+    top-level imports (those a rank runs) name nothing of JAX, and its JAX
+    side is imported inside functions."""
+    path = os.path.join(REPO, "tests", name)
+    tree = ast.parse(open(path).read(), path)
+    top = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top.append(node.module or "")
+    assert "tacotron_multispeaker_torch" in {n.split(".")[0] for n in top}
+    assert not [n for n in top if n.split(".")[0] in FORBIDDEN], top
+    inner = [n for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+             and (n.module or "").startswith("tacotron_multispeaker_tpu")]
+    assert inner                                     # the JAX side, inside a function
 
 
 def test_importing_the_port_loads_no_jax_module():

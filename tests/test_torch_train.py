@@ -109,10 +109,19 @@ def test_tacotron_loss_matches_jax(fused, masked):
 
 
 def test_loss_axis_name_waits_for_the_parallel_slice():
-    z = torch.zeros(1, 5, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        losses.tacotron_loss(z, z, z, z, None, num_freq=4, sample_rate=16000,
-                             axis_name="data")
+    # the parallel slice has landed: the JAX ``axis_name`` is the port's
+    # ``group`` (a process group; tests/test_torch_parallel_train.py holds
+    # it on four ranks against the JAX sharded steps), and no group is the
+    # single-process loss, bit for bit
+    rs = np.random.RandomState(2)
+    arrays = [torch.from_numpy(rs.rand(2, 5, 4).astype(np.float32)) for _ in range(4)]
+    for lengths in (None, torch.tensor([5, 3])):
+        kw = dict(num_freq=4, sample_rate=16000)
+        plain = losses.tacotron_loss(*arrays, lengths, **kw)
+        grouped = losses.tacotron_loss(*arrays, lengths, group=None, **kw)
+        assert all(torch.equal(plain[k], grouped[k]) for k in plain)
+    with pytest.raises(TypeError, match="axis_name"):
+        losses.tacotron_loss(*arrays, None, num_freq=4, sample_rate=16000, axis_name="data")
 
 
 @pytest.mark.parametrize("decay", [True, False])
