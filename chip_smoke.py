@@ -85,7 +85,20 @@ Phases (no failure is caught; any exception exits non-zero):
    and 4 workers, the copy from pinned and pageable memory, fed steps), the
    targets derived on the card held against the offline features, and two
    ``python -m tacotron_multispeaker_torch.train`` runs, the second with
-   ``--pipeline grain --pipeline_workers 2``.
+   ``--pipeline grain --pipeline_workers 2``; the first loop run with
+   ``TACOTRON_TB=1``, its event files read back where tensorboard imports.
+   Phase 7c: ``entry_points`` (``validate`` and ``eval`` in this process on
+   that corpus and its step-14 checkpoint, launches exact; then ``python -m
+   tacotron_multispeaker_torch.validate``, ``.eval`` and ``.demo_server
+   --port 0`` as subprocesses, the server asked over a socket, each one's
+   wall time); ``train_location`` (the f32 location-attention step on the
+   card against the CPU's, three timed full-width bf16 steps, launches
+   exact: kernels 3, 4 and the weight gradients, none of 6, 7, 8);
+   ``adam_bf16`` (the f32 step with ``train.adam_mu_dtype=bfloat16``
+   against the CPU's, bf16 first moments); ``gl_methods`` (Griffin-Lim
+   ``fft`` and ``ct_*`` at B=32 F=1000 n_fft=2048, the overlap-add kernel's
+   route against the plain route, launches counted, card against CPU in
+   f32, each method's ms).
 8. Sharded synthesis (``Synthesizer.make_sharded_synth``): four ranks
    spawned on the one card (gloo over a ``file://`` store).  An f32
    ``shard_seq`` decode of 20 steps against the single-process unsharded
@@ -96,8 +109,8 @@ Phases (no failure is caught; any exception exits non-zero):
    sharded decode with kernel 10), each rank's launches checked per
    request, request ms and audio-s/s, a profile on rank 0.
 
-Each path (three serving paths, training, ``gru``, ``train_loop``, three
-sharded paths) is driven
+Each path (three serving paths, training, ``gru``, ``train_loop``, the
+paths of phase 7c, three sharded paths) is driven
 with every launch count set to 0 just before it and read just after (on
 each rank for the sharded paths).  Prints the per-request
 and per-step times, one ``kernels`` JSON line (each kernel's time, plain
@@ -2314,25 +2327,35 @@ def _train_batch(cfg, B, L, T, seed, device):
     return t(inputs), t(in_len), mel, lin, t(tg_len), t(spk)
 
 
-def phase_train_reference():
+def phase_train_reference(extra="", tag="train f32"):
     """One f32 step (dropout off) at full width on the card against the same
-    step on the CPU plain path, from the same weights and batch."""
+    step on the CPU plain path, from the same weights and batch; ``extra``:
+    more overrides (a path of its own).  Returns {device: train state} and
+    the card step's launches."""
     import torch
     from tacotron_multispeaker_torch import training
     from tacotron_multispeaker_torch.config import get_config
-    cfg = get_config("multispeaker_vctk", "model.compute_dtype=float32,model.prenet_dropout=0.0")
+    cfg = get_config("multispeaker_vctk", ",".join(
+        o for o in ("model.compute_dtype=float32,model.prenet_dropout=0.0", extra) if o))
     batch = _train_batch(cfg, B=2, L=23, T=40, seed=3, device="cpu")
-    runs = {}
+    runs, states = {}, {}
     for dev in ("cpu", "cuda"):
         model, state = training.create_train_state(cfg, seed=1, device=dev)
         step = training.make_train_step(cfg, model)
+        if dev == "cuda":
+            reset_counts()
         state, m = step(state, *(a.to(dev) for a in batch))
         torch.cuda.synchronize()
+        states[dev] = state
         runs[dev] = ({k: float(m[k]) for k in ("loss", "grad_norm")},
                      {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
                      {n: b.detach().cpu() for n, b in model.named_buffers()
                       if n.endswith((".mean", ".var"))},
                      {n: p.detach().cpu() for n, p in model.named_parameters()})
+    launches = read_counts()
+    want = train_launches(cfg)
+    if launches != want:
+        raise AssertionError(f"{tag} step on the card: launches {launches}, expected {want}")
     (mc, gc, bc, pc), (mg, gg, bg, pg) = runs["cpu"], runs["cuda"]
     # loss/grad norm: f32 sums in other orders (cuBLAS, cuDNN without TF32,
     # the kernels) -> 1e-5 / 1e-4 relative.  Gradient leaves (clipped by
@@ -2348,15 +2371,17 @@ def phase_train_reference():
                 for n in gc)
     b_err = max(_rel_err(bg[n], bc[n]) for n in bc)
     p_err = max((pg[n] - pc[n]).abs().max().item() for n in pc)
-    log(f"[train f32] multispeaker_vctk B=2 L=23 T=40, card vs cpu plain path: loss "
+    log(f"[{tag}] multispeaker_vctk{' ' + extra if extra else ''} B=2 L=23 T=40, card vs "
+        f"cpu plain path: loss "
         f"{mc['loss']:.6f} vs {mg['loss']:.6f} (rel {errs['loss']:.2e}, tol 1e-5), grad_norm "
         f"{mc['grad_norm']:.6f} vs {mg['grad_norm']:.6f} (rel {errs['grad_norm']:.2e}, tol "
         f"1e-4), worst gradient leaf {g_err:.2e} (tol 1e-3) over {len(gc)} leaves, running "
         f"stats {b_err:.2e} (tol 1e-5) over {len(bc)}, params after update {p_err:.2e} "
-        f"(abs, tol 1e-6)")
+        f"(abs, tol 1e-6); launches on the card {json.dumps(launches)}")
     if not (errs["loss"] <= 1e-5 and errs["grad_norm"] <= 1e-4 and g_err <= 1e-3
             and b_err <= 1e-5 and p_err <= 1e-6):
-        raise AssertionError("the f32 train step on the card disagrees with the CPU")
+        raise AssertionError(f"the {tag} step on the card disagrees with the CPU")
+    return states, launches
 
 
 def phase_train_bf16():
@@ -2424,6 +2449,23 @@ TRAIN_LAUNCHES = {"bigru_scan": 2, "bigru_scan_fma": 0, "decoder_loop": 0,
                   "wgrad": 3, "wgrad_fma": 0, "conv_bank": 0, "attention_step": 0,
                   "attention_step_partial": 0, "attention_step_direct": 0,
                   "attention_step_partial_direct": 0, "overlap_add": 0, "gl_iteration": 0}
+
+
+
+def train_launches(cfg):
+    """Each kernel's launches in one train step of ``cfg`` (``TRAIN_LAUNCHES``
+    is the bf16 Bahdanau step's): f32 runs the BiGRU forward and the
+    weight gradients on their FMA routes; location attention trains through
+    the per-step loop, without the teacher-decoder kernels (6, 7, 8) and
+    their weight-gradient launch."""
+    want = dict(TRAIN_LAUNCHES)
+    if cfg.model.attention_type == "location":
+        want.update(teacher_decoder_fwd=0, dkeys=0, teacher_decoder_bwd=0,
+                    teacher_decoder_bwd_remat=0, wgrad=want["wgrad"] - 1)
+    if cfg.model.compute_dtype == "float32":
+        want.update(bigru_scan=0, bigru_scan_fma=want["bigru_scan"], wgrad=0,
+                    wgrad_fma=want["wgrad"])
+    return want
 
 
 def phase_train():
@@ -2630,7 +2672,11 @@ def phase_train_loop(bare_step_s, base):
     log_dir = os.path.join(base, "logs")
     reset_counts()
     t0 = time.perf_counter()
-    out = train_loop.train(log_dir, data, cfg, max_steps=LOOP_STEPS)
+    os.environ["TACOTRON_TB"] = "1"
+    try:
+        out = train_loop.train(log_dir, data, cfg, max_steps=LOOP_STEPS)
+    finally:
+        del os.environ["TACOTRON_TB"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     total = read_counts()
@@ -2658,6 +2704,7 @@ def phase_train_loop(bare_step_s, base):
             and rate == cfg.audio.sample_rate and pcm.shape[0] > 0
             and eval_log and "wrote" in eval_log[-1]):
         raise AssertionError("the train loop's run is wrong (see the line above)")
+    _check_tensorboard(log_dir, range(1, 6), 10)
 
     out = train_loop.train(log_dir, data, cfg, max_steps=LOOP_RESUME)
     resumed = [line.strip() for line in open(os.path.join(log_dir, "train.log"))
@@ -2803,6 +2850,360 @@ def phase_train_loop(bare_step_s, base):
     _run_cli(base, "cli-grain", ["--pipeline", "grain", "--pipeline_workers", "2"])
     torch.cuda.empty_cache()
     return total
+
+
+# --------------------------------------------------------------------------
+# phase 7c: the entry points, location-attention training, the bf16 Adam
+# moment and the fft / ct_* Griffin-Lim methods
+# --------------------------------------------------------------------------
+
+def _run_module(name, args, timeout=600):
+    """``python -m tacotron_multispeaker_torch.<name> *args`` on the card:
+    (completed process, wall seconds); a non-zero exit fails the run."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"tacotron_multispeaker_torch.{name}", *args],
+                          cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m tacotron_multispeaker_torch.{name} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc, dt
+
+
+def _http_get(url):
+    """(status, content type, body) of a GET, HTTP errors included."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=300) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def _check_report(report, n_utts, what):
+    l1s = [v for sp in report["per_speaker"].values() for k, v in sp.items() if k != "frames"]
+    l1s += list(report["overall"].values())
+    if not (report["n_utterances"] == n_utts and l1s and all(math.isfinite(x) for x in l1s)):
+        raise AssertionError(f"{what}: report {json.dumps(report)[:2000]}")
+
+
+def phase_entry_points(base):
+    """``validate``, ``eval`` and ``demo_server`` at full-width
+    ``multispeaker_vctk`` on phase 7b's corpus and step-14 checkpoint.  In
+    this process, with every count set to 0 just before and read just
+    after: ``validate.validate`` over the whole corpus (short batches
+    kept), exactly 2 BiGRU forwards (kernel 3) and one teacher forward
+    (kernel 6) a batch; ``eval.main`` on 3 sentences over both input
+    buckets, one ``serve`` request's launches a bucket (and with
+    ``parallel.use_pallas``, the ``serve_pallas`` request's: kernels 11
+    and 13).  Then each as a subprocess of its ``-m`` module on the card,
+    its wall time printed: ``validate`` (its JSON: every utterance, finite
+    L1s), ``eval`` (one WAV a sentence) and ``demo_server --port 0`` (``/``
+    and two concurrent ``/synthesize`` requests in two buckets, valid
+    WAVs; then stopped).  Returns {path: launches}."""
+    import threading
+    from scipy.io import wavfile
+    from tacotron_multispeaker_torch import eval as eval_main
+    from tacotron_multispeaker_torch import validate as validate_main
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.data.feeder import Feeder
+    from tacotron_multispeaker_torch.synthesizer import Synthesizer
+    from tacotron_multispeaker_torch.utils.checkpoint import CheckpointManager
+    import torch
+
+    cfg = get_config("multispeaker_vctk", LOOP_OVERRIDES)
+    texts = [SERVE_TEXTS[i][0] for i in (0, 2, 4)]          # both input buckets
+    data = os.path.join(base, "training")
+    ckpt = CheckpointManager(os.path.join(base, "logs", "checkpoints")).path(LOOP_RESUME)
+    n_utts = len(Feeder(data, cfg, use_native=False))
+    n_batches = len(Feeder(data, cfg, shuffle=False, drop_remainder=False,
+                           use_native=False).epoch_plan(0))
+    out = {}
+
+    syn = Synthesizer(cfg).load(ckpt)
+    reset_counts()
+    t0 = time.perf_counter()
+    report = validate_main.validate(syn, data)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = read_counts()
+    want = dict({k: 0 for k in got}, bigru_scan=2 * n_batches, teacher_decoder_fwd=n_batches)
+    _check_report(report, n_utts, "validate")
+    log(f"[entry_points] validate in process: {n_utts} utterances in {n_batches} batches, "
+        f"{dt:.2f} s; overall mel L1 {report['overall']['mel_l1']:.6f}, linear L1 "
+        f"{report['overall']['linear_l1']:.6f}; launches {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"validate launches {got}, expected {want}")
+    out["validate"] = got
+
+    groups = list(eval_main.group_by_bucket(syn, texts, 8))
+    if len(groups) != 2:
+        raise AssertionError(f"eval's sentences fall in {len(groups)} buckets, need 2")
+    for path in ("serve", "serve_pallas"):
+        ov = ",".join(o for o in (LOOP_OVERRIDES, PATHS[path]) if o)
+        with tempfile.TemporaryDirectory() as d:
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                paths = eval_main.main(["--checkpoint_dir", ckpt, "--preset",
+                                        "multispeaker_vctk", "--hparams", ov, "--out_dir", d,
+                                        *sum((["--text", t] for t in texts), [])])
+            dt = time.perf_counter() - t0
+            got = read_counts()
+            want = {k: len(groups) * v for k, v in path_launches(
+                path, get_config("multispeaker_vctk", ov), cfg.model.max_iters).items()}
+            log(f"[entry_points] eval in process ({path}): {len(paths)} WAVs in {dt:.2f} s "
+                f"(checkpoint load included); launches {json.dumps(got)}")
+            if got != want or len(paths) != len(texts):
+                raise AssertionError(f"eval ({path}) launches {got}, expected {want}")
+        out["eval" if path == "serve" else "eval_pallas"] = got
+    del syn
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        common = ["--checkpoint_dir", ckpt, "--preset", "multispeaker_vctk", "--hparams",
+                  LOOP_OVERRIDES]
+        _, dt = _run_module("validate", [*common[:2], "--data_dir", data, *common[2:],
+                                         "--json_out", os.path.join(d, "report.json")])
+        with open(os.path.join(d, "report.json")) as f:
+            sub = json.load(f)
+        _check_report(sub, n_utts, "python -m ...validate")
+        log(f"[entry_points] python -m tacotron_multispeaker_torch.validate: {dt:.2f} s; "
+            f"n_utterances {sub['n_utterances']}, speakers {len(sub['per_speaker'])}, overall "
+            f"mel L1 {sub['overall']['mel_l1']:.6f} (in process "
+            f"{report['overall']['mel_l1']:.6f})")
+
+        _, dt = _run_module("eval", [*common, "--out_dir", os.path.join(d, "eval"),
+                                     "--speaker_id", "17",
+                                     *sum((["--text", t] for t in texts), [])])
+        wavs = sorted(os.listdir(os.path.join(d, "eval")))
+        rates = [wavfile.read(os.path.join(d, "eval", w)) for w in wavs]
+        log(f"[entry_points] python -m tacotron_multispeaker_torch.eval: {dt:.2f} s; {wavs}, "
+            f"samples {[pcm.shape[0] for _, pcm in rates]}")
+        if not (wavs == [f"eval-{i}.wav" for i in range(len(texts))]
+                and all(r == cfg.audio.sample_rate and pcm.shape[0] > 0 for r, pcm in rates)):
+            raise AssertionError("eval did not write one WAV a sentence")
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tacotron_multispeaker_torch.demo_server", "--checkpoint_dir",
+         ckpt, "--preset", "multispeaker_vctk", "--hparams", LOOP_OVERRIDES, "--port", "0"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line.strip())
+            if line.startswith("serving on"):
+                break
+        if not (lines and lines[-1].startswith("serving on")):
+            raise AssertionError(f"demo_server did not start: {lines}\n{proc.stderr.read()}")
+        ready = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{int(lines[-1].rsplit(':', 1)[1])}"
+        status, ctype, body = _http_get(url + "/")
+        if status != 200 or ctype != "text/html":
+            raise AssertionError(f"demo_server GET /: {status} {ctype}")
+        from urllib.parse import quote
+        asks = [f"/synthesize?text={quote(t)}&speaker_id={s}"
+                for t, s in (SERVE_TEXTS[0], SERVE_TEXTS[2])]
+        answers = [None] * len(asks)
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+            i, _http_get(url + asks[i]))) for i in range(len(asks))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        both = time.perf_counter() - t1
+        for status, ctype, body in answers:
+            rate, pcm = wavfile.read(io.BytesIO(body))
+            if not (status == 200 and ctype == "audio/wav" and body[:4] == b"RIFF"
+                    and rate == cfg.audio.sample_rate and pcm.shape[0] > 0):
+                raise AssertionError(f"demo_server /synthesize: {status} {ctype}")
+        missing = _http_get(url + "/nowhere")[0]
+        log(f"[entry_points] python -m tacotron_multispeaker_torch.demo_server --port 0: "
+            f"warmed up and listening after {ready:.2f} s; GET / 200; two concurrent "
+            f"/synthesize (buckets 96 and 192) {both * 1e3:.2f} ms, WAVs of "
+            f"{[len(b) for _, _, b in answers]} bytes; GET /nowhere {missing}")
+        if missing != 404:
+            raise AssertionError(f"demo_server GET /nowhere: {missing}")
+    finally:
+        watchdog.cancel()
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        proc.stderr.close()
+    return out
+
+
+LOCATION_TRAIN = "model.attention_type=location"
+
+
+def phase_train_location():
+    """Location-attention training (the teacher-forced per-step loop): the
+    f32 step on the card against the CPU's (``phase_train_reference``),
+    then three timed full-width bf16 steps (multispeaker_vctk, B=32, L=192,
+    T=1000) with their launches checked a step (``train_launches``: the
+    BiGRU kernels 3 and 4 and the weight gradients, none of kernels 6, 7
+    and 8).  Returns the launches of the timed steps."""
+    import torch
+    from tacotron_multispeaker_torch import training
+    from tacotron_multispeaker_torch.config import get_config
+    phase_train_reference(LOCATION_TRAIN, "train_location f32")
+    cfg = get_config("multispeaker_vctk", LOCATION_TRAIN)
+    B, L, T = 32, 192, 1000
+    model, state = training.create_train_state(cfg, seed=0)
+    step = training.make_train_step(cfg, model)
+    batch = _train_batch(cfg, B, L, T, seed=5, device="cuda")
+    want = train_launches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for n in range(3):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = _delta(before)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        log(f"[train_location] step {n}: {times[-1] * 1e3:.2f} ms, {B / times[-1]:.2f} "
+            f"examples/s, loss {loss:.6f}, grad_norm {gn:.6f}, launches {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"location train step {n}: launches {got}, expected {want}")
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError(f"location train step {n}: loss {loss}, grad_norm {gn}")
+    total = read_counts()
+    log(f"[train_location] multispeaker_vctk location attention B={B} L={L} T={T} bf16: "
+        f"steps 1-2 {times[1] * 1e3:.2f}, {times[2] * 1e3:.2f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_adam_bf16():
+    """``train.adam_mu_dtype=bfloat16``: phase 7's f32 step on the card
+    against the CPU's (``phase_train_reference``), the stored first moments
+    bf16 on both and one bf16 ulp apart at most (2^-7 of each leaf's peak),
+    the second moments f32.  Returns the card step's launches."""
+    states, launches = phase_train_reference("train.adam_mu_dtype=bfloat16", "adam_bf16")
+    moments = {}
+    for dev, state in states.items():
+        opt = state.optimizer
+        moments[dev] = [(opt.adam.state[p]["exp_avg"], opt.adam.state[p]["exp_avg_sq"])
+                        for p in opt.params]
+    dtypes = {(mu.dtype, nu.dtype) for dev in moments for mu, nu in moments[dev]}
+    # each leaf against its peak, floored at 1e-3 of the largest moment:
+    # leaves whose gradient is zero in exact arithmetic hold noise
+    floor = 1e-3 * max(mu.float().abs().max().item() for mu, _ in moments["cpu"])
+    err = max(((a[0].cpu().float() - b[0].float()).abs().max()
+               / max(b[0].float().abs().max().item(), floor)).item()
+              for a, b in zip(moments["cuda"], moments["cpu"]))
+    log(f"[adam_bf16] {len(moments['cuda'])} first moments, dtypes {sorted(map(str, dtypes))}; "
+        f"card vs cpu, worst leaf {err:.2e} of its peak (floored at 1e-3 of the largest; "
+        f"tol 2^-7, one bf16 ulp)")
+    import torch
+    if dtypes != {(torch.bfloat16, torch.float32)} or err > 2.0 ** -7:
+        raise AssertionError("the bf16 Adam moments are wrong (see the line above)")
+    return launches
+
+
+GL_METHODS = ("fft", "ct_f32", "ct_hi", "ct_bf16", "ct_mix")
+GL_METHOD_ITERS = 4
+
+
+def phase_gl_methods():
+    """Griffin-Lim ``fft`` and ``ct_*`` at B=32 F=1000 n_fft=2048 (hop 275,
+    win 1102), momentum 0.99, ``GL_METHOD_ITERS`` iterations, the same
+    injected initial angles: each method's kernel route (``use_pallas``:
+    every overlap-add in kernel 12, counted: iterations + 1) against its
+    plain route on the card; ``fft`` and ``ct_f32`` on the card against the
+    CPU's plain route on two rows; each method's ms.  Returns the launches
+    of the kernel routes."""
+    import torch
+    from tacotron_multispeaker_torch.audio import dsp
+    B, F, n_iters = 32, 1000, GL_METHOD_ITERS
+    p = dsp.STFTParams(2048, 275, 1102)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    mag = torch.rand((B, 1025, F), generator=g, device="cuda") * 2.0
+    angles = torch.rand((B, F, 1025), generator=g, device="cuda") * (2 * math.pi) - math.pi
+    run = lambda m, k: dsp.griffin_lim(mag, p, n_iters, method=m, momentum=0.99,
+                                       angles=angles, use_pallas=k)
+    reset_counts()
+    for method in GL_METHODS:
+        before = read_counts()
+        y_k = run(method, True)
+        torch.cuda.synchronize()
+        got = _delta(before)
+        want = dict({k: 0 for k in got}, overlap_add=n_iters + 1)
+        before = read_counts()
+        y_p = run(method, False)
+        torch.cuda.synchronize()
+        if got != want or _delta(before) != {k: 0 for k in got}:
+            raise AssertionError(f"{method}: launches {got}, expected {want} (kernel route) "
+                                 "and none on the plain route")
+        ms_k = cuda_time_ms(lambda: run(method, True), reps=2)
+        ms_p = cuda_time_ms(lambda: run(method, False), reps=2)
+        peak = y_p.abs().max().item()
+        err = (y_k - y_p).abs()
+        e_max, e_mean = err.max().item() / peak, err.mean().item() / peak
+        # f32: kernel 12 repeats its plain version's f32 sums -> 1e-5 of the
+        # peak.  bf16 / mix: the plain route's overlap-add runs in bf16 (the
+        # JAX XLA path), the kernel's in f32; the phase estimate carries the
+        # bf16 roundings where |S| ~ 0 (CPU, B=2 F=300: max 5.2e-2, mean
+        # 5.3e-3) -> mean 2e-2 and worst sample 0.2 of the peak
+        bf16 = method in ("ct_bf16", "ct_mix")
+        ok = (e_mean <= 2e-2 and e_max <= 0.2) if bf16 else e_max <= 1e-5
+        line = (f"[gl_methods] {method} B={B} F={F} n_fft=2048 {n_iters} iterations: kernel "
+                f"route {ms_k:.2f} ms, plain route {ms_p:.2f} ms; kernel vs plain route max "
+                f"{e_max:.2e} mean {e_mean:.2e} of the peak ({'mean 2e-2, max 0.2' if bf16 else 'max 1e-5'})")
+        if method in ("fft", "ct_f32"):
+            y_c = dsp.griffin_lim(mag[:2].cpu(), p, n_iters, method=method, momentum=0.99,
+                                  angles=angles[:2].cpu())
+            c_err = (y_p[:2].cpu() - y_c).abs().max().item() / y_c.abs().max().item()
+            line += f"; card vs cpu (rows 0-1) max {c_err:.2e} of the peak (tol 1e-4)"
+            ok = ok and c_err <= 1e-4
+        log(line + f"; launches {json.dumps({k: v for k, v in got.items() if v})}")
+        if not (ok and torch.isfinite(y_k).all() and y_k.shape == (B, 275 * (F - 1))):
+            raise AssertionError(f"Griffin-Lim {method} is wrong (see the line above)")
+    total = read_counts()
+    del mag, angles
+    torch.cuda.empty_cache()
+    return total
+
+
+def _check_tensorboard(log_dir, steps, image_step):
+    """The event files ``TACOTRON_TB=1`` wrote under ``log_dir``/tb: the
+    loss at ``steps``, and the alignment image at ``image_step`` where
+    matplotlib drew its plot; a line says so where tensorboard does not
+    import."""
+    try:
+        from tensorboard.backend.event_processing import event_accumulator
+    except ImportError as e:
+        log(f"[train_loop] tensorboard does not import here ({e}): no event files written, "
+            "metrics.jsonl only")
+        if os.path.exists(os.path.join(log_dir, "tb")):
+            raise AssertionError("event files written without tensorboard")
+        return
+    acc = event_accumulator.EventAccumulator(os.path.join(log_dir, "tb"),
+                                             size_guidance={"scalars": 0, "images": 0})
+    acc.Reload()
+    got = [e.step for e in acc.Scalars("loss")]
+    plot = os.path.exists(os.path.join(log_dir, f"step-{image_step}-align.png"))
+    images = [(e.step, e.width, e.height) for e in acc.Images("alignment")] if plot else []
+    log(f"[train_loop] TACOTRON_TB=1: event files with the loss at steps {got}, alignment "
+        f"images {images}" + ("" if plot else " (no plot: matplotlib does not import here)"))
+    if got != list(steps) or (plot and [s for s, _, _ in images] != [image_step]):
+        raise AssertionError("the TensorBoard event files are wrong (see the line above)")
 
 
 # --------------------------------------------------------------------------
@@ -3620,11 +4021,16 @@ def main() -> int:
     base = tempfile.mkdtemp(prefix="train_loop-")
     try:
         launches["train_loop"] = phase_train_loop(bare_step_s, base)
+        launches.update(phase_entry_points(base))
+        launches["train_location"] = phase_train_location()
+        launches["adam_bf16"] = phase_adam_bf16()
+        launches["gl_methods"] = phase_gl_methods()
         launches.update(phase_shard())
         launches.update(phase_train_parallel(base))
     finally:
         shutil.rmtree(base, ignore_errors=True)
-    paths = (*PATHS, "train", "gru", "train_loop", *SHARD_PATHS, *TRAIN_PAR_PATHS,
+    paths = (*PATHS, "train", "gru", "train_loop", "validate", "eval", "eval_pallas",
+             "train_location", "adam_bf16", "gl_methods", *SHARD_PATHS, *TRAIN_PAR_PATHS,
              "train_loop_dp")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

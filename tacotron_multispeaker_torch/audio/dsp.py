@@ -28,7 +28,13 @@ OLA kernel (ops/overlap_add.py).  Unlike the JAX package, which takes the
 full-frame layout for all four, they keep the window-support layout, and the
 kernel takes the frames prewindowed: the same sums up to their order.
 
-The ``fft`` and ``ct_*`` methods stand in ROADMAP.md.
+The ``ct_{f32,hi,bf16,mix}`` methods factor the DFT as n_fft = N1·N2
+two-stage products (Cooley-Tukey, the JAX package's TPU factorisation),
+always in the full-frame layout, their overlap-adds through the OLA kernel
+under ``use_pallas``; a non-power-of-two n_fft falls back to ``dft_*``, as
+in the JAX package.  ``fft`` is the classic formulation over
+:func:`stft` / :func:`istft` (``torch.fft``), whose overlap-add takes the
+OLA kernel under ``use_pallas``.
 """
 
 from __future__ import annotations
@@ -188,6 +194,35 @@ def stft(y: torch.Tensor, params: STFTParams) -> torch.Tensor:
     return torch.fft.rfft(frames, n=params.n_fft, dim=-1).transpose(-1, -2)
 
 
+def istft(spec: torch.Tensor, params: STFTParams, length: int | None = None,
+          use_pallas: bool = False) -> torch.Tensor:
+    """Inverse STFT by windowed overlap-add: complex [..., bins, frames] ->
+    [..., T] float32 (T = hop·(frames−1) unless ``length`` cuts it).
+    ``use_pallas`` runs the overlap-add in the OLA kernel
+    (ops/overlap_add.py) on a CUDA tensor; otherwise its plain version."""
+    n_fft, hop = params.n_fft, params.hop_length
+    window = torch.from_numpy(hann_window(params.win_length, n_fft)).to(spec.device)
+    bins = spec.transpose(-1, -2).clone()
+    # a real signal's DC and Nyquist bins are real; irfft libraries differ on
+    # an imaginary part there (MKL and pocketfft drop it, cuFFT does not), so
+    # it is dropped here: the same frames on every device
+    bins[..., 0] = bins[..., 0].real
+    if n_fft % 2 == 0:
+        bins[..., -1] = bins[..., -1].real
+    frames = torch.fft.irfft(bins, n=n_fft, dim=-1)
+    n_frames = frames.shape[-2]
+    out_len = n_fft + hop * (n_frames - 1)
+    fb = frames.reshape(-1, n_frames, n_fft)
+    if use_pallas:
+        sig = ola_ops.overlap_add(fb, window, hop)
+    else:
+        sig = overlap_add_reference(fb, window, hop)
+    sig = sig.reshape(*frames.shape[:-2], out_len)
+    pad = n_fft // 2
+    sig = sig[..., pad:]
+    return sig[..., :length] if length is not None else sig[..., : out_len - 2 * pad]
+
+
 def linear_spectrogram(y: torch.Tensor, params: STFTParams, *, preemph: float,
                        ref_level_db: float, min_level_db: float) -> torch.Tensor:
     """Waveform -> normalized linear spectrogram [..., bins, frames]."""
@@ -275,6 +310,101 @@ def spectrogram_targets(y: torch.Tensor, params: STFTParams, *, sample_rate: int
 
 
 # ----------------------------------------------------------------------------
+# Cooley-Tukey factorised DFT (n_fft = N1·N2 two-stage products)
+# ----------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4)
+def _ct_factors(n_fft: int) -> tuple[int, int]:
+    """Split n_fft = N1 * N2 with N1 ≥ N2, both powers of two."""
+    log2 = n_fft.bit_length() - 1
+    if 1 << log2 != n_fft:
+        raise ValueError(f"n_fft {n_fft} must be a power of two for CT")
+    n1 = 1 << ((log2 + 1) // 2)
+    return n1, n_fft // n1
+
+
+@functools.lru_cache(maxsize=4)
+def _ct_matrices(n_fft: int):
+    """The factorised rfft/irfft's constants, float32 numpy: (C1, S1 [N1,
+    N1] stage 1; Wre, Wim [N2, N1] forward twiddles; C2, S2 [N2, N2h] stage
+    2; w [N2h, N1] the inverse's bin weights (1/N, the Hermitian doubling,
+    zero past the last bin); F2re, F2im [N2h, N2]; Tre, Tim [N1, N2] inverse
+    twiddles; E1re, E1im [N1, N1])."""
+    N1, N2 = _ct_factors(n_fft)
+    N2h = N2 // 2 + 1
+    a = k1 = np.arange(N1)
+    ang1 = 2.0 * np.pi * np.outer(a, k1) / N1
+    b = np.arange(N2)
+    angw = 2.0 * np.pi * np.outer(b, k1) / n_fft
+    k2 = np.arange(N2h)
+    ang2 = 2.0 * np.pi * np.outer(b, k2) / N2
+    kflat = k2[:, None] * N1 + k1[None, :]                  # flat bin k = k2·N1 + k1
+    w = np.where((kflat == 0) | (kflat == n_fft // 2), 1.0, 2.0)
+    w = np.where(kflat > n_fft // 2, 0.0, w) / n_fft
+    s = np.arange(N2)
+    angi2 = 2.0 * np.pi * np.outer(k2, s) / N2
+    angit = 2.0 * np.pi * np.outer(k1, s) / n_fft
+    angi1 = 2.0 * np.pi * np.outer(a, k1) / N1
+    mats = (np.cos(ang1), -np.sin(ang1), np.cos(angw), -np.sin(angw), np.cos(ang2),
+            -np.sin(ang2), w, np.cos(angi2), np.sin(angi2), np.cos(angit), np.sin(angit),
+            np.cos(angi1), np.sin(angi1))
+    return tuple(m.astype(np.float32) for m in mats)
+
+
+@functools.lru_cache(maxsize=8)
+def _ct_constants(n_fft: int, device: torch.device, dtype: torch.dtype):
+    """:func:`_ct_matrices` on ``device`` as the JAX package takes them:
+    every matrix in ``dtype`` but w, and the twiddles (rounded to
+    ``dtype``) then widened to float32 for their f32 products."""
+    mats = [torch.from_numpy(m).to(device) for m in _ct_matrices(n_fft)]
+    low = [m.to(dtype) for m in mats]
+    for i in (2, 3, 9, 10):                                 # Wre, Wim, Tre, Tim
+        low[i] = low[i].float()
+    low[6] = mats[6]
+    return tuple(low)
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with a float32 result: the products of the operands (bf16 or
+    f32 values) summed in f32, as ``preferred_element_type=float32``."""
+    return a.float() @ b.float()
+
+
+def _dft_ct(frames: torch.Tensor, n_fft: int, dtype: torch.dtype):
+    """Factorised rfft: [..., F, n_fft] -> (re, im) each [..., F, bins] f32."""
+    N1, N2 = _ct_factors(n_fft)
+    N2h, bins, lead = N2 // 2 + 1, n_fft // 2 + 1, frames.shape[:-1]
+    C1, S1, Wre, Wim, C2, S2 = _ct_constants(n_fft, frames.device, dtype)[:6]
+    x = frames.to(dtype).reshape(*lead, N1, N2).transpose(-1, -2)    # [..., b, a]
+    yre, yim = _mm32(x, C1), _mm32(x, S1)                            # [..., b, k1]
+    zre = (yre * Wre - yim * Wim).transpose(-1, -2).to(dtype)        # [..., k1, b]
+    zim = (yre * Wim + yim * Wre).transpose(-1, -2).to(dtype)
+    xre = _mm32(zre, C2) - _mm32(zim, S2)                            # [..., k1, k2]
+    xim = _mm32(zre, S2) + _mm32(zim, C2)
+    xre = xre.transpose(-1, -2).reshape(*lead, N2h * N1)             # bin k2·N1 + k1
+    xim = xim.transpose(-1, -2).reshape(*lead, N2h * N1)
+    return xre[..., :bins], xim[..., :bins]
+
+
+def _idft_ct(re: torch.Tensor, im: torch.Tensor, n_fft: int, dtype: torch.dtype):
+    """Factorised irfft: (re, im) [..., F, bins] -> frames [..., F, n_fft] f32."""
+    N1, N2 = _ct_factors(n_fft)
+    N2h, bins, lead = N2 // 2 + 1, n_fft // 2 + 1, re.shape[:-1]
+    _, _, _, _, _, _, w, F2re, F2im, Tre, Tim, E1re, E1im = _ct_constants(
+        n_fft, re.device, dtype)
+    pad = N2h * N1 - bins
+    grid = lambda t: torch.nn.functional.pad(t, (0, pad)).reshape(*lead, N2h, N1) * w
+    xre = grid(re).transpose(-1, -2).to(dtype)                       # [..., k1, k2]
+    xim = grid(im).transpose(-1, -2).to(dtype)
+    ure = _mm32(xre, F2re) - _mm32(xim, F2im)                        # [..., k1, s]
+    uim = _mm32(xre, F2im) + _mm32(xim, F2re)
+    vre = (ure * Tre - uim * Tim).to(dtype)
+    vim = (ure * Tim + uim * Tre).to(dtype)
+    out = _mm32(E1re, vre) - _mm32(E1im, vim)                        # [..., q, s]
+    return out.reshape(*lead, n_fft)
+
+
+# ----------------------------------------------------------------------------
 # Griffin-Lim
 # ----------------------------------------------------------------------------
 
@@ -316,18 +446,25 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
     accurate of the two.
 
     ``use_pallas``: the kernels and their layouts (module docstring).
+    ``ct_*`` runs the factorised transforms, ``fft`` the classic
+    formulation (:func:`_griffin_lim_fft`).
     """
+    if method == "fft":
+        return _griffin_lim_fft(magnitude, params, n_iters, generator, momentum, angles,
+                                use_pallas)
     algo, _, prec = method.partition("_")
-    if algo != "dft" or prec not in ("f32", "hi", "bf16", "mix"):
-        raise NotImplementedError(
-            f"Griffin-Lim method {method!r} is not ported yet (ROADMAP.md, "
-            "'Griffin-Lim fft/ct methods'); use dft_f32|dft_hi|dft_bf16|dft_mix")
+    if algo not in ("dft", "ct") or prec not in ("f32", "hi", "bf16", "mix"):
+        raise ValueError(f"Griffin-Lim method {method!r}: fft, or dft_* / ct_* with "
+                         "f32|hi|bf16|mix")
+    n_fft, hop = params.n_fft, params.hop_length
+    if algo == "ct" and n_fft & (n_fft - 1):
+        algo = "dft"                         # CT needs a power-of-two n_fft, as in JAX
+    ct = algo == "ct"
     dev = magnitude.device
     mom = momentum / (1.0 + momentum) if momentum > 0.0 else 0.0
     dtype = torch.bfloat16 if prec in ("bf16", "mix") else torch.float32
-    n_fft, hop = params.n_fft, params.hop_length
-    fuse_fast = use_pallas and prec in ("bf16", "mix")
-    windowed = params.win_length < n_fft and not fuse_fast
+    fuse_fast = use_pallas and prec in ("bf16", "mix") and not ct
+    windowed = params.win_length < n_fft and not fuse_fast and not ct
     ola_kernel = use_pallas and not fuse_fast
     Wn = params.win_length if windowed else n_fft
     lpad = (n_fft - Wn) // 2
@@ -344,13 +481,18 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
     magT_flat = magT.reshape(-1, nF, magT.shape[-1])
 
     def fwd(frames, dt):
+        if ct:
+            return _dft_ct(frames, n_fft, dt)
         C, S, _, _ = by_dtype[dt]
         f = frames.to(dt)
         return f @ C, f @ S
 
     def ola(re, im, dt):
-        _, _, iC, iS = by_dtype[dt]
-        frames = (re.to(dt) @ iC + im.to(dt) @ iS).to(dt).reshape(-1, nF, Wn)
+        if ct:
+            frames = _idft_ct(re, im, n_fft, dt).to(dt).reshape(-1, nF, Wn)
+        else:
+            _, _, iC, iS = by_dtype[dt]
+            frames = (re.to(dt) @ iC + im.to(dt) @ iS).to(dt).reshape(-1, nF, Wn)
         if ola_kernel:
             return ola_ops.overlap_add(frames, window, hop, prewindowed=windowed)
         sig = overlap_add_reference(frames, window.to(dt), hop, prewindowed=windowed)
@@ -408,6 +550,32 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
     # OLA signal starts lpad samples into the full-frame coordinates
     y = sig[..., n_fft // 2 - lpad: out_len - (n_fft // 2 - rpad)]
     return y.reshape(*batch_shape, y.shape[-1])
+
+
+def _griffin_lim_fft(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
+                     generator: torch.Generator | None, momentum: float,
+                     angles: torch.Tensor | None, use_pallas: bool) -> torch.Tensor:
+    """Griffin-Lim method ``fft`` (the JAX ``griffin_lim`` ``:560-577``):
+    :func:`istft` of the magnitude with the initial phases, then per
+    iteration the :func:`stft` of the signal, extrapolated by the momentum
+    term, its phase on the magnitude, :func:`istft` again.  ``angles`` as
+    in :func:`griffin_lim` ([..., frames, bins])."""
+    mom = momentum / (1.0 + momentum) if momentum > 0.0 else 0.0
+    dev = magnitude.device
+    mag = magnitude.float().to(torch.complex64)              # [..., bins, F]
+    if angles is None:
+        angles = (torch.rand(magnitude.transpose(-1, -2).shape, generator=generator,
+                             device=dev) * (2.0 * math.pi) - math.pi)
+    a = angles.to(dev).float().transpose(-1, -2)
+    y = istft(mag * torch.polar(torch.ones_like(a), a), params, use_pallas=use_pallas)
+    prev = torch.zeros_like(mag)
+    for _ in range(n_iters):
+        est = stft(y, params)
+        acc = est - mom * prev                               # fast-GL extrapolation
+        y = istft(mag * (acc / torch.clamp(acc.abs(), min=1e-8)), params,
+                  use_pallas=use_pallas)
+        prev = est
+    return y
 
 
 def inv_linear_spectrogram(spec: torch.Tensor, params: STFTParams, *,

@@ -112,18 +112,19 @@ class Feeder:
     loads only its contiguous ``batch_size // process_count`` slice of every
     global batch.  ``process_index`` / ``process_count`` default to the
     rank and world size of ``torch.distributed`` when it is initialised,
-    else 0 and 1.  Every epoch is shuffled from ``cfg.train.seed`` and a
-    group's short last batch is dropped: the JAX Feeder's ``shuffle``,
-    ``seed`` and ``drop_remainder`` options serve only ``validate.py``,
-    which waits in ROADMAP.md ("Data + loop").
+    else 0 and 1.  ``shuffle`` shuffles the metadata order and each
+    group's batch order from ``seed`` (default ``cfg.train.seed``); without
+    it the plan keeps the metadata order within the group sort.
+    ``drop_remainder`` drops a group's short last batch; validation keeps it.
 
     ``use_native``: the C++ assembler for the f32 targets; None means
     "where it builds" (the choice is logged).  ``empty(shape, dtype)``
     allocates the targets' tensors; None gives numpy arrays.
     """
 
-    def __init__(self, data_dir: str, cfg, *, cmudict_path: str | None = None,
-                 use_native: bool | None = None, empty=None,
+    def __init__(self, data_dir: str, cfg, *, shuffle: bool = True,
+                 seed: int | None = None, cmudict_path: str | None = None,
+                 drop_remainder: bool = True, use_native: bool | None = None, empty=None,
                  process_index: int | None = None, process_count: int | None = None):
         from .preprocess import load_metadata
         if cfg.train.targets_dtype not in ("float32", "bfloat16"):
@@ -132,7 +133,9 @@ class Feeder:
         self.data_dir = data_dir
         self.cfg = cfg
         self.audio = cfg.audio
-        self.seed = cfg.train.seed
+        self.shuffle = shuffle
+        self.seed = cfg.train.seed if seed is None else seed
+        self.drop_remainder = drop_remainder
         self.meta = load_metadata(os.path.join(data_dir, "train.txt"))
         if not self.meta:
             raise ValueError(f"no metadata rows in {data_dir}/train.txt")
@@ -279,7 +282,8 @@ class Feeder:
         process; entries ``(epoch, batch_index, global_row_indices, L, T)``."""
         rng = random.Random(f"{self.seed}-{epoch}")
         order = list(range(len(self.meta)))
-        rng.shuffle(order)
+        if self.shuffle:
+            rng.shuffle(order)
         bs = self.cfg.train.batch_size
         group = bs * self.cfg.train.batches_per_group
         n_batch = 0
@@ -288,9 +292,10 @@ class Feeder:
             idxs = order[g0: g0 + group]
             idxs.sort(key=lambda i: self.meta[i]["n_frames"])
             batches = [idxs[i: i + bs] for i in range(0, len(idxs), bs)]
-            if batches and len(batches[-1]) < bs:
+            if self.drop_remainder and batches and len(batches[-1]) < bs:
                 batches.pop()
-            rng.shuffle(batches)
+            if self.shuffle:
+                rng.shuffle(batches)
             for bidx in batches:
                 rows = [self.meta[i] for i in bidx]
                 # bucket shapes from the whole global batch

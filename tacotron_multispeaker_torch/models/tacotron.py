@@ -4,7 +4,9 @@ Port of ``tacotron_multispeaker_tpu/models/tacotron.py``: char embedding →
 [speaker conditioning] → prenet → encoder CBHG → attention GRU decoder
 emitting r mel frames per step → post-net CBHG → linear spectrogram
 projection.  ``forward`` is the teacher-forced training path: the decoder
-runs as one fused differentiable scan (ops/teacher_decoder.py).  ``generate``
+runs as one fused differentiable scan (ops/teacher_decoder.py) for Bahdanau
+attention, and as a per-step loop under autograd for location attention
+(the JAX package's XLA scan; no kernel of its own).  ``generate``
 runs the whole autoregressive decode as one fused decoder loop
 (ops/decoder_loop.py) for Bahdanau attention with a two-layer prenet and
 ``parallel.use_pallas_decode``, and otherwise as a per-step decode of
@@ -318,11 +320,14 @@ class Tacotron(nn.Module):
         [B, E] stands in for the table lookup of ``speaker_ids``, as in
         :meth:`generate`."""
         m = self.cfg.model
-        if m.attention_type != "bahdanau":
-            raise NotImplementedError(
-                f"the teacher-forced path of attention_type={m.attention_type!r} is not "
-                "ported yet (ROADMAP.md, 'Location-attention training'); the fused "
-                "teacher decoder runs Bahdanau attention")
+        bahdanau = m.attention_type == "bahdanau"
+        if not bahdanau and self.attention.use_pallas and torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()):
+            raise RuntimeError(
+                "location-attention training under parallel.use_pallas: the attention-step "
+                "kernel has no backward, as the JAX package's attention_step_pallas has no "
+                "VJP (jax.grad raises there too); train with parallel.use_pallas off, or run "
+                "the forward under torch.no_grad()")
         B, L = inputs.shape
         T, M = mel_targets.shape[1], self.cfg.audio.num_mels
         H = m.decoder_depth
@@ -340,10 +345,49 @@ class Tacotron(nn.Module):
         pn_proj = prenet_out @ w_pn + b_pn                               # [B, S, 3H]
         png = pn_proj[..., :2 * H].transpose(0, 1).contiguous()
         pnc = pn_proj[..., 2 * H:].transpose(0, 1).contiguous()
-        xs, aligns = td_ops.teacher_decoder(png, pnc, attn_h0, dec_h0, weights, keys,
-                                            memory, mask)
+        if bahdanau:
+            xs, aligns = td_ops.teacher_decoder(png, pnc, attn_h0, dec_h0, weights, keys,
+                                                memory, mask)
+        else:
+            xs, aligns = self._teacher_scan(pn_proj, attn_h0, dec_h0, weights, keys, memory,
+                                            mask)
         frames = self.decoder_cell.frame_proj(xs.transpose(0, 1)).float()  # [B, S, r*M]
         return frames.reshape(B, T, M), aligns.transpose(0, 1)
+
+    def _teacher_scan(self, pn_proj, attn_h0, dec_h0, weights, keys, memory, mask):
+        """The teacher-forced decoder as a per-step loop under autograd (the
+        JAX ``teacher_mel`` scan, ``models/tacotron.py:376-400``), for the
+        attention the fused teacher decoder does not run (location): the
+        merged projections of :meth:`_teacher_weights`, the step of
+        :meth:`DecoderCell.step` with the teacher-forced prenet projections
+        ``pn_proj`` [B, S, 3H] in place of the fed-back frames, and the
+        module's own attention step (the location conv and projection in
+        plain PyTorch; its energies in the attention-step kernel under
+        ``parallel.use_pallas``, inference only).  → (xs [S, B, H], aligns
+        [S, B, L] f32), the fused decoder's layout."""
+        dt, H = self.dtype, self.cfg.model.decoder_depth
+        cell = self.decoder_cell
+        B, L = keys.shape[:2]
+        attn_h = attn_h0.to(dt)
+        hs = [h.to(dt) for h in dec_h0]
+        state = init_state(B, L, keys.device)
+        ctx_blk = torch.zeros((B, 4 * H), dtype=dt, device=keys.device)   # zero context @ w_ctx
+        d_b = weights.d_b.to(dt)                           # the biases in the compute dtype
+        b_rs = [b.to(dt) for b in weights.b_r]
+        xs, aligns = [], []
+        for pn_t in pn_proj.unbind(1):
+            attn_h = cell.attn_rnn.step_from_proj(attn_h, pn_t[:, :2 * H] + ctx_blk[:, H:3 * H],
+                                                  pn_t[:, 2 * H:] + ctx_blk[:, 3 * H:])
+            context, align, state = self.attention(attn_h, keys, memory, mask, state)
+            ctx_blk = context.to(dt) @ weights.w_ctx
+            x = attn_h @ weights.wd_h + ctx_blk[:, :H] + d_b
+            for i, (rnn, w_r, b_r) in enumerate(zip(cell.dec_rnns, weights.w_r, b_rs)):
+                xgc = x @ w_r + b_r
+                hs[i] = rnn.step_from_proj(hs[i], xgc[:, :2 * H], xgc[:, 2 * H:])
+                x = x + hs[i]                              # residual stack
+            xs.append(x)
+            aligns.append(align)
+        return torch.stack(xs), torch.stack(aligns)
 
     def forward(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                 mel_targets: torch.Tensor, speaker_ids: torch.Tensor | None = None,

@@ -11,7 +11,9 @@ the device on a side stream one batch ahead of the step.  Every
 (utils/checkpoint.py), then inference on a training example through the
 ``Synthesizer`` with the training weights, written as a Griffin-Lim WAV,
 its alignments (``.npy``) and, where matplotlib is installed, their plot
-(the reference's artifact-driven workflow).
+(the reference's artifact-driven workflow).  Summaries go to
+``metrics.jsonl`` and, with ``TACOTRON_TB=1``, to TensorBoard event files
+(utils/metrics.py), the alignment plots as images.
 
 One host sync every ``sync_every = min(summary_interval, 32)`` steps reads
 the loss and aborts on a non-finite one; summaries at steps ≤ 5 and every
@@ -174,7 +176,8 @@ def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = N
                 # the interval need not divide sync_every: check here, so a
                 # blow-up is never written as a restorable checkpoint
                 check_finite(float(metrics["loss"]))
-                _checkpoint_and_eval(ckpt, state, step, synth, host_batch, cfg, log_dir)
+                _checkpoint_and_eval(ckpt, state, step, synth, host_batch, cfg, log_dir,
+                                     writer)
                 saved.add(step)
                 # the other ranks wait here for rank 0's eval, not inside
                 # the next step's collectives
@@ -248,10 +251,11 @@ class DeviceBatches:
         return host, args
 
 
-def _checkpoint_and_eval(ckpt, state, step, synth, batch, cfg, log_dir):
+def _checkpoint_and_eval(ckpt, state, step, synth, batch, cfg, log_dir, writer=None):
     """Save a checkpoint (the full state: every rank gathers, rank 0
     writes), then, on rank 0, synthesize the batch's first example with the
-    full training weights and write its WAV, alignments and alignment plot.
+    full training weights and write its WAV, alignments and alignment plot
+    (also to ``writer``'s TensorBoard images).
     A failure of the artifacts is logged and training goes on; loading the
     weights into the synthesizer is outside that: a state that does not fit
     the model raises."""
@@ -271,9 +275,11 @@ def _checkpoint_and_eval(ckpt, state, step, synth, batch, cfg, log_dir):
         align = aligns[0].cpu().numpy()
         np.save(os.path.join(log_dir, f"step-{step}-align.npy"), align)
         stamp = time.strftime("%Y-%m-%d %H:%M")
+        align_path = os.path.join(log_dir, f"step-{step}-align.png")
         try:
-            plot.plot_alignment(align, os.path.join(log_dir, f"step-{step}-align.png"),
-                                info=f"{cfg.name}, step={step}, {stamp}")
+            plot.plot_alignment(align, align_path, info=f"{cfg.name}, step={step}, {stamp}")
+            if writer is not None:
+                writer.image(step, "alignment", align_path)
         except ImportError as e:    # matplotlib is optional: the .npy holds the alignment
             log(f"alignment plot not drawn ({e})")
         log(f"wrote eval artifacts for step {step}")

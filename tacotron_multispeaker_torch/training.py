@@ -15,7 +15,8 @@ and a step updates them in place.  Prenet dropout draws from a
 ``torch.Generator`` seeded from (seed, step), as the JAX step folds the step
 into its key.  With ``train.targets_from_wav`` the step derives its
 spectrogram targets from the batch's int16 PCM (:func:`derive_wav_targets`).
-``train.adam_mu_dtype=bfloat16`` is not ported yet (ROADMAP.md).
+``train.adam_mu_dtype=bfloat16`` keeps Adam's first moment in bfloat16, as
+optax's ``scale_by_adam(mu_dtype=)`` does (:class:`Optimizer`).
 
 Sharded training runs one process per position of a (data, model) mesh of
 ranks (parallel/).  Every rank calls the step on its own slice of each
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -71,14 +73,19 @@ def _grads(params) -> list[torch.Tensor]:
 
 class Optimizer:
     """optax ``chain(clip_by_global_norm, scale_by_adam, scale_by_schedule,
-    scale(-1))`` over ``params``; ``torch.optim.Adam`` carries the moments."""
+    scale(-1))`` over ``params``.  ``torch.optim.Adam`` carries the moments
+    and makes the f32 update.  With ``train.adam_mu_dtype=bfloat16`` the
+    first moment is kept in bfloat16, which ``torch.optim.Adam`` cannot
+    do, so the update is written out here in optax's order
+    (:meth:`_low_mu_update`); the state keeps ``torch.optim``'s layout
+    (``state[i] = {step, exp_avg, exp_avg_sq}``, ``exp_avg`` bf16), so
+    checkpoints and their gathers over a mesh take it unchanged."""
 
     def __init__(self, cfg: Config, params):
         tr = cfg.train
-        if tr.adam_mu_dtype != "float32":
-            raise NotImplementedError(
-                f"train.adam_mu_dtype={tr.adam_mu_dtype!r} is not ported yet "
-                "(ROADMAP.md, 'train.adam_mu_dtype=bfloat16')")
+        if tr.adam_mu_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"train.adam_mu_dtype={tr.adam_mu_dtype!r}: float32 or bfloat16")
+        self.mu_dtype = torch.bfloat16 if tr.adam_mu_dtype == "bfloat16" else None
         self.params = [p for p in params if p.requires_grad]
         self.max_norm = tr.grad_clip_norm
         self.schedule = learning_rate_schedule(cfg)
@@ -102,10 +109,43 @@ class Optimizer:
         keep = norm < self.max_norm
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm * self.max_norm))
-        for group in self.adam.param_groups:
-            group["lr"] = self.schedule(count)
-        self.adam.step()
+        lr = self.schedule(count)
+        if self.mu_dtype is None:
+            for group in self.adam.param_groups:
+                group["lr"] = lr
+            self.adam.step()
+        else:
+            self._low_mu_update(lr)
         return norm
+
+    def _low_mu_update(self, lr: float) -> None:
+        """optax ``scale_by_adam(mu_dtype=bf16)`` then the schedule's scale:
+        mu = (1−b1)·g + b1·mu_bf16, the second product in bf16 (JAX rounds
+        the weakly typed b1 to the moment's dtype); nu = (1−b2)·g² + b2·nu;
+        the update mu/(1−b1^n) / (sqrt(nu/(1−b2^n)) + eps) from the
+        unrounded f32 mu, the bias corrections in f32; only then is mu
+        stored rounded to bf16."""
+        group = self.adam.param_groups[0]
+        (b1, b2), eps = group["betas"], group["eps"]
+        b1_low = torch.tensor(b1, dtype=self.mu_dtype)
+        f32 = np.float32
+        for p in self.params:
+            st = self.adam.state[p]
+            if not st:
+                st["step"] = torch.tensor(0.0)
+                st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                st["exp_avg_sq"] = torch.zeros_like(p)
+            st["step"] += 1
+            n = f32(st["step"].item())
+            bc1 = float(f32(1.0) - np.power(f32(b1), n))
+            bc2 = float(f32(1.0) - np.power(f32(b2), n))
+            g = p.grad
+            mu = g * (1.0 - b1) + (st["exp_avg"] * b1_low).float()
+            nu = g * g * (1.0 - b2) + st["exp_avg_sq"] * b2
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            p.sub_(update * lr)
+            st["exp_avg"].copy_(mu)
+            st["exp_avg_sq"].copy_(nu)
 
     def state_dict(self) -> dict:
         """The Adam moments and step counts (``torch.optim`` layout)."""
@@ -113,6 +153,12 @@ class Optimizer:
 
     def load_state_dict(self, state: dict) -> None:
         self.adam.load_state_dict(state)
+        if self.mu_dtype is not None:
+            # torch.optim casts every moment to its parameter's dtype on load;
+            # the step count stays a host scalar (read without a device sync)
+            for st in self.adam.state.values():
+                st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
+                st["step"] = st["step"].float().cpu()
 
 
 def make_optimizer(cfg: Config, params) -> Optimizer:

@@ -23,6 +23,14 @@ from tacotron_multispeaker_torch.audio import dsp as tdsp
 from tacotron_multispeaker_torch.config import AudioConfig
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _warm_cpu_math():
+    # a fresh process's first f32 transcendentals on several threads can
+    # come back at ~1e-4 relative error (device.warm_cpu_math)
+    from tacotron_multispeaker_torch.device import warm_cpu_math
+    warm_cpu_math()
+
+
 def _angles(key, B, F, bins):
     return np.array(jax.random.uniform(key, (B, F, bins), minval=-math.pi,
                                        maxval=math.pi))
@@ -121,9 +129,11 @@ def test_audio_processor_inv_spectrogram_and_helpers():
 
 
 def test_unported_griffin_lim_methods_raise():
+    # every method of the JAX package is ported; a name outside them raises
     mag = torch.ones(1, 513, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdsp.griffin_lim(mag, tdsp.STFTParams(1024, 275, 1024), 2, method="fft")
+    for method in ("wavelet_f32", "dft_f16", "ct", "fft_f32"):
+        with pytest.raises(ValueError, match="Griffin-Lim method"):
+            tdsp.griffin_lim(mag, tdsp.STFTParams(1024, 275, 1024), 2, method=method)
 
 
 @pytest.mark.parametrize("method", ["dft_mix", "dft_bf16", "dft_f32", "dft_hi"])
@@ -217,3 +227,77 @@ def test_griffin_lim_use_pallas_routes_its_layouts(monkeypatch, method, win, ola
                          momentum=0.99, use_pallas=True, generator=torch.Generator().manual_seed(0))
     assert y.shape == (1, 64 * 5) and torch.isfinite(y).all()
     assert calls == {"ola": ola, "gl": gl}
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_istft_matches_jax(use_pallas):
+    # irfft frames and the windowed overlap-add (the JAX OLA kernel in
+    # interpret mode under use_pallas, the port's plain version of kernel 12
+    # on the CPU), f32 -> 1e-6 of the peak; with and without ``length``
+    rs = np.random.RandomState(12)
+    B, F, n_fft, hop, win = 2, 10, 256, 64, 200
+    spec = (rs.randn(B, n_fft // 2 + 1, F) + 1j * rs.randn(B, n_fft // 2 + 1, F)
+            ).astype(np.complex64)
+    jp, tp = jdsp.STFTParams(n_fft, hop, win), tdsp.STFTParams(n_fft, hop, win)
+    for length in (None, 300):
+        y_j = np.asarray(jdsp.istft(jnp.asarray(spec), jp, length=length,
+                                    use_pallas=use_pallas))
+        y_t = tdsp.istft(torch.from_numpy(spec), tp, length=length,
+                         use_pallas=use_pallas).numpy()
+        assert y_t.shape == y_j.shape == (B, length or hop * (F - 1))
+        assert np.abs(y_t - y_j).max() <= 1e-6 * np.abs(y_j).max()
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("method", ["fft", "ct_f32", "ct_hi", "ct_bf16", "ct_mix"])
+def test_griffin_lim_fft_and_ct_match_jax(method, use_pallas):
+    # the same initial angles on both sides (``fft`` draws them in the
+    # magnitude's [B, bins, frames] layout, the port takes [B, frames, bins]),
+    # 6 fast-GL iterations at n_fft=256 (N1=16, N2=16) with win < n_fft: ct_*
+    # keeps the full frame on both sides, its overlap-adds in the OLA kernel
+    # under use_pallas.  fft (FFTs, f32): 3e-5 of the peak (measured 7.6e-6);
+    # ct_f32 / ct_hi (f32 products both sides; JAX's HIGH is f32 on the CPU):
+    # 1e-5 (measured 7.5e-7); ct_bf16 / ct_mix: bf16 rounding at the same
+    # points, flipped where a sum order differs and carried chaotically where
+    # |S| ~ 0, as for dft_bf16: mean 1e-2 and worst sample 5e-2 of the peak
+    # (measured 2.4e-3 / 2.8e-2 at most)
+    rs = np.random.RandomState(1)
+    B, F, n_fft, hop, win = 2, 10, 256, 64, 200
+    bins = n_fft // 2 + 1
+    mag = rs.uniform(0.0, 2.0, (B, bins, F)).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    jp = jdsp.STFTParams(n_fft, hop, win)
+    y_j = np.asarray(jdsp.griffin_lim(jnp.asarray(mag), jp, 6, key, use_pallas=use_pallas,
+                                      method=method, momentum=0.99))
+    if method == "fft":
+        angles = _angles(key, B, bins, F).transpose(0, 2, 1).copy()
+    else:
+        angles = _angles(key, B, F, bins)
+    y_t = tdsp.griffin_lim(torch.from_numpy(mag), tdsp.STFTParams(n_fft, hop, win), 6,
+                           method=method, momentum=0.99, use_pallas=use_pallas,
+                           angles=torch.from_numpy(angles)).numpy()
+    assert y_t.shape == y_j.shape == (B, hop * (F - 1))
+    peak, err = np.abs(y_j).max(), np.abs(y_t - y_j)
+    if method in ("ct_bf16", "ct_mix"):
+        assert err.mean() <= 1e-2 * peak and err.max() <= 5e-2 * peak, err.max() / peak
+    else:
+        assert err.max() <= (3e-5 if method == "fft" else 1e-5) * peak, err.max() / peak
+
+
+def test_ct_transforms_and_non_power_of_two_fallback():
+    # the factorised rfft/irfft against torch.fft in f32 (1e-5 of the peak),
+    # and ct_* on a non-power-of-two n_fft is dft_* exactly, as in JAX
+    rs = np.random.RandomState(4)
+    frames = torch.from_numpy(rs.randn(3, 5, 512).astype(np.float32))
+    re, im = tdsp._dft_ct(frames, 512, torch.float32)
+    ref = torch.fft.rfft(frames, dim=-1)
+    assert (torch.stack([re, im]) - torch.stack([ref.real, ref.imag])).abs().max() \
+        <= 1e-5 * ref.abs().max()
+    back = tdsp._idft_ct(ref.real, ref.imag, 512, torch.float32)
+    assert (back - frames).abs().max() <= 1e-5 * frames.abs().max()
+    mag = torch.from_numpy(rs.uniform(0.0, 2.0, (1, 121, 6)).astype(np.float32))
+    p = tdsp.STFTParams(240, 60, 200)
+    a = torch.from_numpy(rs.uniform(-math.pi, math.pi, (1, 6, 121)).astype(np.float32))
+    for prec in ("f32", "bf16"):
+        assert torch.equal(tdsp.griffin_lim(mag, p, 3, method=f"ct_{prec}", angles=a),
+                           tdsp.griffin_lim(mag, p, 3, method=f"dft_{prec}", angles=a))

@@ -1488,3 +1488,89 @@ def test_pinned_batches_copy_on_a_side_stream_on_card(cuda):
             # values, uniform in +-1000, would be off by thousands)
             np.testing.assert_allclose([float(g) for g in got], [float(w) for w in want],
                                        rtol=1e-12, err_msg=str(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["fft", "ct_f32", "ct_hi", "ct_bf16", "ct_mix"])
+def test_griffin_lim_fft_and_ct_kernel_route_matches_plain_on_card(cuda, method):
+    # use_pallas: every overlap-add of fft / ct_* in kernel 12 (iterations +
+    # 1 launches), the full frame; against the plain route on the card with
+    # the same angles.  f32: kernel 12 repeats its plain version's f32 sums
+    # -> 1e-5 of the peak.  bf16 / mix: the plain route's overlap-add runs
+    # in bf16, the kernel's in f32, and the phase estimate carries the
+    # roundings -> mean 2e-2, worst sample 0.2 of the peak
+    from tacotron_multispeaker_torch.audio import dsp
+    B, F, n_iters = 2, 60, 4
+    p = dsp.STFTParams(2048, 275, 1102)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    mag = torch.rand((B, 1025, F), generator=g, device=cuda) * 2.0
+    angles = torch.rand((B, F, 1025), generator=g, device=cuda) * (2 * math.pi) - math.pi
+    before = tola.launches
+    y_k = dsp.griffin_lim(mag, p, n_iters, method=method, momentum=0.99, angles=angles,
+                          use_pallas=True)
+    torch.cuda.synchronize()
+    assert tola.launches - before == n_iters + 1
+    y_p = dsp.griffin_lim(mag, p, n_iters, method=method, momentum=0.99, angles=angles)
+    assert tola.launches - before == n_iters + 1
+    assert y_k.shape == y_p.shape == (B, 275 * (F - 1)) and torch.isfinite(y_k).all()
+    err, peak = (y_k - y_p).abs(), y_p.abs().max()
+    if method in ("ct_bf16", "ct_mix"):
+        assert err.mean() <= 2e-2 * peak and err.max() <= 0.2 * peak
+    else:
+        assert err.max() <= 1e-5 * peak
+
+
+@pytest.mark.gpu
+def test_location_attention_train_step_launches_on_card(cuda):
+    # location attention trains through the per-step loop: per step the two
+    # BiGRU forwards (kernel 3) and backwards (kernel 4, prologue and scan)
+    # and their two weight-gradient launches; no teacher-decoder kernel
+    # (6, 7, 8), no attention-step kernel (no use_pallas); a finite loss
+    from tacotron_multispeaker_torch import training
+    from tacotron_multispeaker_torch.ops import wgrad as twgrad
+    cfg = tconfig.get_config("multispeaker_vctk", "model.attention_type=location")
+    model, state = training.create_train_state(cfg, seed=0, device=cuda)
+    step = training.make_train_step(cfg, model)
+    batch = [torch.from_numpy(a).to(cuda) for a in train_batch(
+        np.random.RandomState(8), cfg, B=4, L=24, T=40, vocab=60)]
+    count = lambda: (tgs.launches + tgs.fma_launches, tgs.bwd_launches, tgs.bwd_remat_launches,
+                     twgrad.launches + twgrad.fma_launches, ttd.fwd_launches, ttd.dkeys_launches,
+                     ttd.bwd_launches, ttd.bwd_remat_launches, tas.launches)
+    for _ in range(2):
+        before = count()
+        state, m = step(state, *batch)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(count(), before)] == [2, 2, 2, 2, 0, 0, 0, 0, 0]
+        assert math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))
+
+
+@pytest.mark.gpu
+def test_bf16_adam_step_on_card_matches_cpu(cuda):
+    # train.adam_mu_dtype=bfloat16, f32 tiny model, dropout off: one step on
+    # the card against the CPU's.  The first moments are bf16 on both and one
+    # bf16 ulp apart at most (2^-7 of each leaf's peak; f32 gradients in
+    # other sum orders; floored as below), the second moments f32; parameters
+    # 2.5·lr absolute (Adam's first step is about lr·sign(g))
+    from tacotron_multispeaker_torch import training
+    cfg = tconfig.get_config("tiny", "model.compute_dtype=float32,model.prenet_dropout=0.0,"
+                             "model.num_speakers=3,train.adam_mu_dtype=bfloat16")
+    batch = train_batch(np.random.RandomState(22), cfg, B=3, L=11, T=20)
+    out = {}
+    for dev in ("cpu", cuda):
+        model, state = training.create_train_state(cfg, seed=4, device=dev)
+        state, _ = training.make_train_step(cfg, model)(
+            state, *(torch.from_numpy(a).to(dev) for a in batch))
+        opt = state.optimizer
+        out[str(dev)] = ([(opt.adam.state[p]["exp_avg"].cpu(), opt.adam.state[p]["exp_avg_sq"])
+                          for p in opt.params], [p.detach().cpu() for p in opt.params])
+    lr = training.learning_rate_schedule(cfg)(0)
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    # floored at 1e-3 of the largest moment: leaves whose gradient is zero in
+    # exact arithmetic (a conv bias before a training-mode BatchNorm) hold noise
+    floor = 1e-3 * max(mu.float().abs().max().item() for mu, _ in mc)
+    for (mu_c, nu_c), (mu_g, nu_g), p_c, p_g in zip(mc, mg, pc, pg):
+        assert mu_c.dtype == mu_g.dtype == torch.bfloat16
+        assert nu_c.dtype == nu_g.dtype == torch.float32
+        assert (mu_g.float() - mu_c.float()).abs().max() <= 2.0 ** -7 * max(
+            mu_c.float().abs().max().item(), floor)
+        assert (p_g - p_c).abs().max() <= 2.5 * lr

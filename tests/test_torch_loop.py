@@ -136,6 +136,67 @@ def test_eval_artifacts_without_matplotlib(corpus, tmp_path, monkeypatch):
     assert "alignment plot not drawn" in text and "wrote eval artifacts for step 2" in text
 
 
+def _event_accumulator(tb_dir):
+    from tensorboard.backend.event_processing import event_accumulator
+    acc = event_accumulator.EventAccumulator(tb_dir, size_guidance={"scalars": 0, "images": 0})
+    acc.Reload()
+    return acc
+
+
+def _png(width, height):
+    """A tiny RGB PNG (a gradient), written with zlib alone."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    rows = b"".join(b"\0" + bytes(v for x in range(width) for v in (40 * x, 60 * y, 128))
+                    for y in range(height))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def test_metrics_writer_tensorboard_events(tmp_path, monkeypatch):
+    # scalars and a PNG image read back with tensorboard's event reader;
+    # metrics.jsonl beside them; where tensorboard does not import, one log
+    # line says so and only metrics.jsonl is written
+    from tacotron_multispeaker_torch.utils import metrics
+    png = tmp_path / "align.png"
+    png.write_bytes(_png(5, 3))
+    w = metrics.MetricsWriter(str(tmp_path / "run"), use_tensorboard=True)
+    w.scalars(1, {"loss": 2.5, "lr": 1e-3})
+    w.scalars(2, {"loss": 1.25, "lr": 1e-3})
+    w.image(2, "alignment", str(png))
+    w.image(3, "alignment", str(tmp_path / "missing.png"))       # no file: nothing
+    w.close()
+    acc = _event_accumulator(str(tmp_path / "run" / "tb"))
+    assert [(e.step, e.value) for e in acc.Scalars("loss")] == [(1, 2.5), (2, 1.25)]
+    (img,) = acc.Images("alignment")
+    assert (img.step, img.width, img.height) == (2, 5, 3)
+    assert img.encoded_image_string == png.read_bytes()
+    assert [r["loss"] for r in _metrics(str(tmp_path / "run"))] == [2.5, 1.25]
+
+    import builtins
+    real_import = builtins.__import__
+
+    def no_tensorboard(name, *args, **kwargs):
+        if name.startswith("torch.utils.tensorboard"):
+            raise ImportError("No module named 'tensorboard'")
+        return real_import(name, *args, **kwargs)
+
+    logged = []
+    monkeypatch.setattr(builtins, "__import__", no_tensorboard)
+    monkeypatch.setattr(metrics.infolog, "log", logged.append)
+    w = metrics.MetricsWriter(str(tmp_path / "bare"), use_tensorboard=True)
+    w.scalars(1, {"loss": 3.0})
+    w.image(1, "alignment", str(png))
+    w.close()
+    assert len(logged) == 1 and "TensorBoard" in logged[0]
+    assert os.listdir(tmp_path / "bare") == ["metrics.jsonl"]
+
+
 def test_checkpoint_manager_keeps_the_newest_five(tmp_path):
     cfg = tconfig.get_config("tiny")
     _, state = training.create_train_state(cfg, device="cpu")
@@ -180,10 +241,14 @@ def test_train_entry_point_and_unported_options(corpus, tmp_path, monkeypatch):
     assert CheckpointManager(os.path.join(logs, "checkpoints")).steps() == [2]
     assert os.listdir(os.path.join(logs, "profile")) == ["steps-1-2.json"]
     cfg = tconfig.get_config("tiny", OV)
+    # TACOTRON_TB=1: the loop's summaries also go to TensorBoard event files
     monkeypatch.setenv("TACOTRON_TB", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_loop.train(str(tmp_path / "tb"), corpus, cfg, max_steps=1, device="cpu")
+    train_loop.train(str(tmp_path / "tb"), corpus, cfg, max_steps=1, device="cpu")
     monkeypatch.delenv("TACOTRON_TB")
+    acc = _event_accumulator(str(tmp_path / "tb" / "tb"))
+    assert [e.step for e in acc.Scalars("loss")] == [1]
+    assert _metrics(str(tmp_path / "tb"))[0]["loss"] == pytest.approx(
+        acc.Scalars("loss")[0].value, rel=1e-6)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_main.main(["--base_dir", base, "--preset", "tiny", "--max_steps", "1"])

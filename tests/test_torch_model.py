@@ -333,11 +333,23 @@ def test_per_step_decode_equals_fused_decode():
 
 
 def test_location_attention_training_path_raises():
-    cfg = tconfig.get_config("tiny", "model.attention_type=location")
-    model = create_model("tacotron", cfg).reset_parameters(torch.Generator().manual_seed(0))
+    # the teacher-forced location path trains with the plain attention step;
+    # under parallel.use_pallas it raises when a gradient is asked, as
+    # jax.grad through the JAX attention-step kernel does (no VJP)
     inputs, lengths = torch.randint(2, 60, (2, 7)), torch.tensor([7, 4])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(inputs, lengths, torch.rand(2, 10, cfg.audio.num_mels))
+    for ov, raises in (("", False), (",parallel.use_pallas=true", True)):
+        cfg = tconfig.get_config("tiny", "model.attention_type=location" + ov)
+        model = create_model("tacotron", cfg).reset_parameters(torch.Generator().manual_seed(0))
+        mel = torch.rand(2, 10, cfg.audio.num_mels)
+        if raises:
+            with pytest.raises(RuntimeError, match="no backward"):
+                model(inputs, lengths, mel)
+            with torch.no_grad():
+                model(inputs, lengths, mel)
+        else:
+            out = model(inputs, lengths, mel)
+            out.mel_outputs.sum().backward()
+            assert out.alignments.shape == (2, 2, 7)
 
 
 def test_use_pallas_conv_bank_refuses_training():

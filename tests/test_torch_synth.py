@@ -197,8 +197,10 @@ def test_importing_the_port_loads_no_jax_module():
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {os.path.join(REPO, 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "import tacotron_multispeaker_torch.train as t, tacotron_multispeaker_torch.preprocess as q\n"
+        "import tacotron_multispeaker_torch.validate as v, tacotron_multispeaker_torch.eval as e\n"
+        "import tacotron_multispeaker_torch.demo_server as d\n"
         "import contextlib, io\n"
-        "for main in (t.main, q.main):\n"
+        "for main in (t.main, q.main, v.main, e.main, d.main):\n"
         "    with contextlib.redirect_stdout(io.StringIO()):\n"
         "        try:\n"
         "            main(['--help'])\n"

@@ -170,8 +170,10 @@ def test_teacher_inputs_match_jax():
 
 
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        training.create_train_state(tconfig.get_config("tiny", "train.adam_mu_dtype=bfloat16"),
+    # float32 and bfloat16 first moments are ported (optax's mu_dtype); any
+    # other dtype raises
+    with pytest.raises(ValueError, match="adam_mu_dtype"):
+        training.create_train_state(tconfig.get_config("tiny", "train.adam_mu_dtype=float16"),
                                     device="cpu")
 
 
@@ -279,3 +281,68 @@ def test_generate_keeps_running_statistics_in_training_mode(pair):
         assert torch.equal(x, y)
     assert all(torch.equal(before[k], v) for k, v in model.state_dict().items())
     assert model.train().training
+
+
+def test_bf16_adam_moment_matches_optax_over_three_updates():
+    # train.adam_mu_dtype=bfloat16 against the JAX chain (clip, optax
+    # scale_by_adam(mu_dtype=bf16), schedule, -1) over three updates, the
+    # second one clipped: the first moments stay bf16 on both sides, 99 % of
+    # them bit-equal and the rest one bf16 ulp apart (2^-7 of the leaf's
+    # peak at most; a clip norm an ulp apart can move a rounding);
+    # second moments and parameters 1e-6 relative (f32 pow and sqrt of
+    # different libraries)
+    ov = OVERRIDES + ",train.adam_mu_dtype=bfloat16,train.initial_learning_rate=0.01"
+    jcfg, tcfg = jconfig.get_config("tiny", ov), tconfig.get_config("tiny", ov)
+    rs = np.random.RandomState(9)
+    shapes = [(33, 17), (17,), (5, 4, 3)]
+    init = [rs.randn(*s).astype(np.float32) for s in shapes]
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in init]
+    opt = training.make_optimizer(tcfg, ps)
+    tx = jtraining.make_optimizer(jcfg)
+    jp = {f"p{i}": jnp.asarray(a) for i, a in enumerate(init)}
+    jst = tx.init(jp)
+    for n, scale in enumerate((0.01, 3.0, 0.02)):
+        gs = [(rs.randn(*s) * scale).astype(np.float32) for s in shapes]
+        for p, g in zip(ps, gs):
+            p.grad = torch.from_numpy(g.copy())
+        norm = opt.step(n)
+        u, jst = tx.update({f"p{i}": jnp.asarray(g) for i, g in enumerate(gs)}, jst, jp)
+        jp = optax.apply_updates(jp, u)
+        _close(float(norm), float(optax.global_norm(gs)), 1e-6, f"update {n} norm")
+        adam = jst[1]
+        for i, p in enumerate(ps):
+            st = opt.adam.state[p]
+            mu_j = adam.mu[f"p{i}"]
+            assert st["exp_avg"].dtype == torch.bfloat16 and mu_j.dtype == jnp.bfloat16
+            assert st["exp_avg_sq"].dtype == torch.float32 and int(st["step"]) == n + 1
+            mu_t, mu_j = st["exp_avg"].float().numpy(), np.asarray(mu_j, np.float32)
+            assert np.mean(mu_t == mu_j) > 0.99, (n, i)
+            _close(mu_t, mu_j, 2.0 ** -7, f"update {n} mu {i}")
+            _close(st["exp_avg_sq"].numpy(), adam.nu[f"p{i}"], 1e-6, f"update {n} nu {i}")
+            _close(p.detach().numpy(), jp[f"p{i}"], 1e-6, f"update {n} param {i}")
+
+
+def test_bf16_adam_checkpoint_round_trip_and_resume(tmp_path):
+    # a train step, a checkpoint, a second step; a fresh state restored from
+    # the checkpoint keeps its first moments in bf16 and its second step
+    # gives the same parameters and moments bit for bit
+    from tacotron_multispeaker_torch.utils.checkpoint import CheckpointManager
+    tcfg = tconfig.get_config("tiny", OVERRIDES + ",train.adam_mu_dtype=bfloat16")
+    batch = [torch.from_numpy(a) for a in train_batch(np.random.RandomState(3), tcfg,
+                                                       B=2, L=9, T=10)]
+    model, state = training.create_train_state(tcfg, seed=1, device="cpu")
+    step = training.make_train_step(tcfg, model)
+    state, _ = step(state, *batch)
+    CheckpointManager(str(tmp_path)).save(state.step, state)
+    state, _ = step(state, *batch)
+    model2, state2 = training.create_train_state(tcfg, seed=5, device="cpu")
+    CheckpointManager(str(tmp_path)).restore(state2)
+    assert state2.step == 1
+    assert all(st["exp_avg"].dtype == torch.bfloat16
+               for st in state2.optimizer.adam.state.values())
+    state2, _ = training.make_train_step(tcfg, model2)(state2, *batch)
+    for (k, a), b in zip(model.state_dict().items(), model2.state_dict().values()):
+        assert torch.equal(a, b), k
+    for p, q in zip(state.optimizer.params, state2.optimizer.params):
+        s, t = state.optimizer.adam.state[p], state2.optimizer.adam.state[q]
+        assert all(torch.equal(s[k], t[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
