@@ -2118,7 +2118,7 @@ def _profile_kernels(fn, reps, stems):
     a device time that was not measured is never reported as 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from tacotron_multispeaker_torch.train_loop import device_busy
+    from tacotron_multispeaker_torch.tracing import device_busy
     fn()
     torch.cuda.synchronize()
     best, last = (-1, None), None
@@ -3911,7 +3911,7 @@ def phase_profile(runs):
     host's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from tacotron_multispeaker_torch.train_loop import device_busy
+    from tacotron_multispeaker_torch.tracing import device_busy
     for label, fn in runs:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -119,7 +119,10 @@ def _host_ms(torch, fn, reps=3):
 
 def _busy_ms(torch, fn):
     from torch.profiler import ProfilerActivity, profile
-    from tacotron_multispeaker_torch.train_loop import device_busy
+    try:
+        from tacotron_multispeaker_torch.tracing import device_busy
+    except ImportError:         # a checkout from before the tracing module
+        from tacotron_multispeaker_torch.train_loop import device_busy
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from .. import tracing
 from ..config import Config
 from ..ops import decoder_loop as dl_ops
 from ..ops import teacher_decoder as td_ops
@@ -452,42 +453,42 @@ class Tacotron(nn.Module):
         n_steps = max_iters if max_iters is not None else m.max_iters
         dev = inputs.device
 
-        with self._running_statistics():
+        with self._running_statistics(), tracing.span("synth.encoder", device=dev):
             spk = (speaker_embed.to(self.dtype) if speaker_embed is not None
                    else self._speaker_embed(speaker_ids))
             memory = self.encoder(inputs, input_lengths, spk, generator).contiguous()
             keys = self.attention.precompute_keys(memory).contiguous()
-        mask = (torch.arange(L, device=dev)[None, :]
-                < input_lengths.to(dev)[:, None]).contiguous()
-        if self.seq_mesh is not None:
-            # this rank's slice of the encoder length (the JAX tacotron.py:473-483)
-            n, j = self.seq_mesh.model, self.seq_mesh.model_index
-            if L % n:
-                raise ValueError(f"input length {L} not divisible by model axis {n}")
-            sl = slice(j * (L // n), (j + 1) * (L // n))
-            memory, keys, mask = (t[:, sl].contiguous() for t in (memory, keys, mask))
-        attn_h0, dec_h0 = self._init_carry(B, spk, dev)
-
-        keep = 1.0 - m.prenet_dropout
-        masks = None
-        if keep < 1.0:
-            masks = [(torch.rand((n_steps, B, n), generator=generator, device=dev)
-                      < keep).float() / keep for n in m.prenet_depths]
-        fused = (self.seq_mesh is None and m.attention_type == "bahdanau"
-                 and len(m.prenet_depths) == 2 and self.cfg.parallel.use_pallas_decode)
-        if fused:
-            if masks is None:
-                masks = [torch.ones((n_steps, B, n), device=dev) for n in m.prenet_depths]
-            frames, aligns = dl_ops.decoder_loop(
-                self._fused_decoder_weights(), keys, memory, mask, masks[0], masks[1],
-                attn_h0, dec_h0, n_steps, M)
-            mel_out = frames.transpose(0, 1).reshape(B, n_steps * r, M)
-            aligns = aligns.transpose(0, 1)
-        else:
-            mel_out, aligns = self._per_step_decode(keys, memory, mask, attn_h0, dec_h0,
-                                                    masks, n_steps)
+        with tracing.span("synth.decode", device=dev):
+            mask = (torch.arange(L, device=dev)[None, :]
+                    < input_lengths.to(dev)[:, None]).contiguous()
+            if self.seq_mesh is not None:
+                # this rank's slice of the encoder length (the JAX tacotron.py:473-483)
+                n, j = self.seq_mesh.model, self.seq_mesh.model_index
+                if L % n:
+                    raise ValueError(f"input length {L} not divisible by model axis {n}")
+                sl = slice(j * (L // n), (j + 1) * (L // n))
+                memory, keys, mask = (t[:, sl].contiguous() for t in (memory, keys, mask))
+            attn_h0, dec_h0 = self._init_carry(B, spk, dev)
+            keep = 1.0 - m.prenet_dropout
+            masks = None
+            if keep < 1.0:
+                masks = [(torch.rand((n_steps, B, n), generator=generator, device=dev)
+                          < keep).float() / keep for n in m.prenet_depths]
+            fused = (self.seq_mesh is None and m.attention_type == "bahdanau"
+                     and len(m.prenet_depths) == 2 and self.cfg.parallel.use_pallas_decode)
+            if fused:
+                if masks is None:
+                    masks = [torch.ones((n_steps, B, n), device=dev) for n in m.prenet_depths]
+                frames, aligns = dl_ops.decoder_loop(
+                    self._fused_decoder_weights(), keys, memory, mask, masks[0], masks[1],
+                    attn_h0, dec_h0, n_steps, M)
+                mel_out = frames.transpose(0, 1).reshape(B, n_steps * r, M)
+                aligns = aligns.transpose(0, 1)
+            else:
+                mel_out, aligns = self._per_step_decode(keys, memory, mask, attn_h0, dec_h0,
+                                                        masks, n_steps)
         target_lengths = torch.full((B,), n_steps * r, dtype=torch.long, device=dev)
-        with self._running_statistics():
+        with self._running_statistics(), tracing.span("synth.postnet", device=dev):
             linear_out = self._postnet(mel_out, target_lengths)
         return TacotronOutput(mel_out, linear_out, aligns)
 

@@ -27,7 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import convert
+from . import convert, tracing
 from .audio import AudioProcessor
 from .audio import dsp
 from .config import Config
@@ -96,25 +96,30 @@ class Synthesizer:
             raise ValueError("this Synthesizer keeps only its rows of the speaker table "
                              "(mesh=): serve through make_sharded_synth")
         cfg = self.cfg
-        seqs = [np.asarray(text_to_sequence(t, cfg.cleaners), np.int64)
-                for t in texts]
-        maxlen = pad_to or max(len(s) for s in seqs)
         dev = self.device
-        inputs = torch.as_tensor(np.stack([pad_axis(s, maxlen) for s in seqs]),
-                                 device=dev)
-        # a text longer than the pad length is cut to it (the JAX package
-        # keeps the uncut length, which its clamped gathers then misread)
-        lengths = torch.as_tensor([min(len(s), maxlen) for s in seqs],
-                                  dtype=torch.long, device=dev)
-        sids = torch.as_tensor(speaker_ids if speaker_ids is not None
-                               else [0] * len(texts), dtype=torch.long, device=dev)
-        iters = max_iters or self._iters_for(int(lengths.max()))
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        angles = None if gl_angles is None else torch.as_tensor(
-            np.array(gl_angles, np.float32), device=dev)
-        wavs, aligns, _ = self._make_fn(iters)(inputs, lengths, sids, gen, angles)
-        wavs, aligns = wavs.cpu().numpy(), aligns.cpu().numpy()
-        trimmed = [w[: self.ap.find_endpoint(w)] for w in wavs]
+        with tracing.span("synth.call", device=dev, rows=len(texts)) as call:
+            with tracing.span("synth.prepare"):
+                seqs = [np.asarray(text_to_sequence(t, cfg.cleaners), np.int64)
+                        for t in texts]
+                maxlen = pad_to or max(len(s) for s in seqs)
+                call.note(bucket=maxlen)
+                inputs = torch.as_tensor(np.stack([pad_axis(s, maxlen) for s in seqs]),
+                                         device=dev)
+                # a text longer than the pad length is cut to it (the JAX package
+                # keeps the uncut length, which its clamped gathers then misread)
+                lengths = torch.as_tensor([min(len(s), maxlen) for s in seqs],
+                                          dtype=torch.long, device=dev)
+                sids = torch.as_tensor(speaker_ids if speaker_ids is not None
+                                       else [0] * len(texts), dtype=torch.long, device=dev)
+                iters = max_iters or self._iters_for(int(lengths.max()))
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                angles = None if gl_angles is None else torch.as_tensor(
+                    np.array(gl_angles, np.float32), device=dev)
+            wavs, aligns, _ = self._make_fn(iters)(inputs, lengths, sids, gen, angles)
+            with tracing.span("synth.copy"):
+                wavs, aligns = wavs.cpu().numpy(), aligns.cpu().numpy()
+            with tracing.span("synth.trim"):
+                trimmed = [w[: self.ap.find_endpoint(w)] for w in wavs]
         return trimmed, aligns
 
     # -- the decode+vocode function -------------------------------------------
@@ -139,12 +144,14 @@ class Synthesizer:
                 out = model.generate(inputs, lengths, **spk, max_iters=max_iters,
                                      generator=generator)
                 spec = out.linear_outputs.transpose(1, 2)             # [B, bins, T]
-                wav = dsp.inv_linear_spectrogram(
-                    spec, self.ap.params, preemph=audio.preemphasis,
-                    ref_level_db=audio.ref_level_db, min_level_db=audio.min_level_db,
-                    power=audio.power, gl_iters=audio.griffin_lim_iters, generator=generator,
-                    gl_method=audio.gl_method, gl_momentum=audio.gl_momentum,
-                    use_pallas=cfg.parallel.use_pallas, angles=gl_angles)
+                with tracing.span("synth.griffin_lim", device=spec.device):
+                    wav = dsp.inv_linear_spectrogram(
+                        spec, self.ap.params, preemph=audio.preemphasis,
+                        ref_level_db=audio.ref_level_db, min_level_db=audio.min_level_db,
+                        power=audio.power, gl_iters=audio.griffin_lim_iters,
+                        generator=generator, gl_method=audio.gl_method,
+                        gl_momentum=audio.gl_momentum, use_pallas=cfg.parallel.use_pallas,
+                        angles=gl_angles)
             return wav, out.alignments, out.mel_outputs
 
         return fn
@@ -221,21 +228,23 @@ class Synthesizer:
         dev = self.device
 
         def fn(inputs, lengths, speaker_ids, seed: int = 0, gl_angles=None):
-            inputs = torch.as_tensor(inputs, device=dev).long()
-            if tuple(inputs.shape) != (batch, length):
-                raise ValueError(f"inputs {tuple(inputs.shape)}, built for {(batch, length)}")
-            mine = slice(index * b_local, (index + 1) * b_local)
-            lengths = torch.as_tensor(lengths, device=dev).long()[mine]
-            sids = (None if speaker_ids is None
-                    else torch.as_tensor(speaker_ids, device=dev).long()[mine])
-            angles = None if gl_angles is None else torch.as_tensor(
-                gl_angles[mine], dtype=torch.float32, device=dev)
-            gen = _fold_generator(seed, index, dev)
-            wav, align, mel = run(inputs[mine], lengths, sids, gen, angles)
-            with torch.inference_mode():
-                if seq:                       # alignments: this rank's slice of L
-                    align = all_gather(align, 2, mesh.model_group)
-                return tuple(all_gather(t, 0, group) for t in (wav, align, mel))
+            with tracing.span("synth.call", device=dev, rows=batch, bucket=length):
+                inputs = torch.as_tensor(inputs, device=dev).long()
+                if tuple(inputs.shape) != (batch, length):
+                    raise ValueError(f"inputs {tuple(inputs.shape)}, built for "
+                                     f"{(batch, length)}")
+                mine = slice(index * b_local, (index + 1) * b_local)
+                lengths = torch.as_tensor(lengths, device=dev).long()[mine]
+                sids = (None if speaker_ids is None
+                        else torch.as_tensor(speaker_ids, device=dev).long()[mine])
+                angles = None if gl_angles is None else torch.as_tensor(
+                    gl_angles[mine], dtype=torch.float32, device=dev)
+                gen = _fold_generator(seed, index, dev)
+                wav, align, mel = run(inputs[mine], lengths, sids, gen, angles)
+                with torch.inference_mode(), tracing.span("synth.gather"):
+                    if seq:                       # alignments: this rank's slice of L
+                        align = all_gather(align, 2, mesh.model_group)
+                    return tuple(all_gather(t, 0, group) for t in (wav, align, mel))
 
         return fn
 

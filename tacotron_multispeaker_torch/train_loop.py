@@ -19,7 +19,9 @@ One host sync every ``sync_every = min(summary_interval, 32)`` steps reads
 the loss and aborts on a non-finite one; summaries at steps ≤ 5 and every
 ``summary_interval``; after a divergence abort no checkpoint is written,
 otherwise the final state is saved.  ``profile_steps=(START, STOP)`` traces
-steps [START, STOP) with ``torch.profiler``.
+steps [START, STOP) with ``torch.profiler`` (tracing.py), where the loop's
+spans ``train.next_batch``, ``train.step``, ``train.sync`` and
+``train.checkpoint`` name what the host was doing.
 
 In a process group (``torchrun``, or ``parallel.initialize_distributed``)
 every rank runs this loop as one position of the (data, model) mesh that
@@ -41,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from . import tracing
 from .config import Config
 from .data.feeder import Feeder, PrefetchIterator, pinned_empty
 from .device import resolve_device
@@ -147,45 +150,50 @@ def train(log_dir: str, data_dir: str, cfg: Config, *, max_steps: int | None = N
         while step < max_steps:
             if profile_steps is not None:
                 if prof is None and step == profile_steps[0]:
-                    prof, prof_t0 = _start_profile(dev)
+                    prof, prof_t0 = tracing.start_profile(dev)
                     log(f"profiler trace started at step {step}")
                 elif prof is not None and step >= profile_steps[1]:
-                    prof_summary = _stop_profile(prof, prof_t0, dev, log_dir, profile_steps)
+                    prof_summary = tracing.stop_profile(prof, prof_t0, dev, log_dir,
+                                                        profile_steps)
                     prof = None
             host_batch, args = feed.take()
-            state, metrics = step_fn(state, *args)
+            with tracing.span("train.step", device=dev, step=step):
+                state, metrics = step_fn(state, *args)
             step += 1
             if step < max_steps:
                 feed.prefetch()         # the next batch's copy runs beside this step
             if step % sync_every == 0:
-                check_finite(float(metrics["loss"]))
+                with tracing.span("train.sync", device=dev):
+                    check_finite(float(metrics["loss"]))
             t_now = time.time()
             window = (window + [(step, t_now - t_last)])[-100:]
             t_last = t_now
             sec_per_step = float(np.mean([dt for _, dt in window]))
             if step % cfg.train.summary_interval == 0 or step <= 5:
-                loss = float(metrics["loss"])
-                check_finite(loss)
-                values = {k: float(metrics[k]) for k in
-                          ("loss", "mel_loss", "linear_loss", "grad_norm", "lr")}
+                with tracing.span("train.sync", device=dev):
+                    loss = float(metrics["loss"])
+                    check_finite(loss)
+                    values = {k: float(metrics[k]) for k in
+                              ("loss", "mel_loss", "linear_loss", "grad_norm", "lr")}
                 writer.scalars(step, {**values, "sec_per_step": sec_per_step})
                 log(f"step {step:7d}  loss={loss:.5f}  mel={values['mel_loss']:.5f}  "
                     f"lin={values['linear_loss']:.5f}  gnorm={values['grad_norm']:.3f}  "
                     f"lr={values['lr']:.6f}  sec/step={sec_per_step:.3f}")
             if step % cfg.train.checkpoint_interval == 0:
-                # the interval need not divide sync_every: check here, so a
-                # blow-up is never written as a restorable checkpoint
-                check_finite(float(metrics["loss"]))
-                _checkpoint_and_eval(ckpt, state, step, synth, host_batch, cfg, log_dir,
-                                     writer)
-                saved.add(step)
-                # the other ranks wait here for rank 0's eval, not inside
-                # the next step's collectives
-                barrier()
+                with tracing.span("train.checkpoint", device=dev, step=step):
+                    # the interval need not divide sync_every: check here, so a
+                    # blow-up is never written as a restorable checkpoint
+                    check_finite(float(metrics["loss"]))
+                    _checkpoint_and_eval(ckpt, state, step, synth, host_batch, cfg, log_dir,
+                                         writer)
+                    saved.add(step)
+                    # the other ranks wait here for rank 0's eval, not inside
+                    # the next step's collectives
+                    barrier()
                 t_last = time.time()        # the next step's time leaves this out
     finally:
         if prof is not None:
-            prof_summary = _stop_profile(prof, prof_t0, dev, log_dir, profile_steps)
+            prof_summary = tracing.stop_profile(prof, prof_t0, dev, log_dir, profile_steps)
         batches.close()
         writer.close()
         if diverged:
@@ -228,7 +236,8 @@ class DeviceBatches:
         self._next = None
 
     def prefetch(self) -> None:
-        host = next(self._batches)
+        with tracing.span("train.next_batch", device=self.dev):
+            host = next(self._batches)
         if self._stream is None:
             self._next = (host, batch_to_device(host, self.dev), None)
             return
@@ -286,56 +295,3 @@ def _checkpoint_and_eval(ckpt, state, step, synth, batch, cfg, log_dir, writer=N
     except Exception as e:  # noqa: BLE001 - eval artifacts must never stop training
         rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
         log(f"eval artifact generation failed on rank {rank}: {type(e).__name__}: {e}")
-
-
-def _start_profile(dev):
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    prof = profile(activities=acts)
-    prof.start()
-    return prof, time.perf_counter()
-
-
-def _stop_profile(prof, t0, dev, log_dir, steps) -> dict:
-    """Stop the trace, write it to ``<log_dir>/profile/``, and log the
-    window's wall time, device-busy time (the union of the device spans),
-    idle share and top device kernels."""
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.stop()
-    os.makedirs(os.path.join(log_dir, "profile"), exist_ok=True)
-    path = os.path.join(log_dir, "profile", f"steps-{steps[0]}-{steps[1]}.json")
-    prof.export_chrome_trace(path)
-    busy_ms, n_spans, by_name = device_busy(prof)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    summary = {"steps": list(steps), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-               "device_spans": n_spans, "top": [(name[:60], ms) for name, (ms, _) in top]}
-    if busy_ms is not None:
-        summary["idle_share"] = 1.0 - busy_ms / wall_ms
-    log(f"profiler trace of steps [{steps[0]}, {steps[1]}) written to {path}: {summary}")
-    return summary
-
-
-def device_busy(prof) -> tuple[float | None, int, dict]:
-    """Of a finished ``torch.profiler`` run: the device-busy ms (the union
-    of the device spans; None when the trace holds none), the number of
-    device spans, and {kernel name: (device ms, count)}."""
-    from torch.autograd import DeviceType
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        return None, 0, {}
-    busy_us, cur_s, cur_e, by_name = 0.0, spans[0][0], spans[0][1], {}
-    for s, e, name in spans:
-        tot, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (tot + (e - s) / 1e3, n + 1)
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
-    return busy_us / 1e3, len(spans), by_name

@@ -240,6 +240,10 @@ def test_train_entry_point_and_unported_options(corpus, tmp_path, monkeypatch):
     logs = os.path.join(base, "logs-entry")
     assert CheckpointManager(os.path.join(logs, "checkpoints")).steps() == [2]
     assert os.listdir(os.path.join(logs, "profile")) == ["steps-1-2.json"]
+    # the loop's own spans label the written trace
+    with open(os.path.join(logs, "profile", "steps-1-2.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "train.step" in names
     cfg = tconfig.get_config("tiny", OV)
     # TACOTRON_TB=1: the loop's summaries also go to TensorBoard event files
     monkeypatch.setenv("TACOTRON_TB", "1")
