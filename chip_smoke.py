@@ -2101,6 +2101,91 @@ def _spectral_convergence(sre, sim, mag, win, hop):
     return ((st - mag).norm() / mag.norm()).item()
 
 
+def phase_endpoint():
+    """``AudioProcessor.find_endpoints`` (each synthesized row's endpoint, in
+    plain PyTorch on the waveform's device) on the card against the CPU's
+    answer and the host's ``find_endpoint``, at the two synthesis shapes
+    (``vctk`` [32, 275000] at 22.05 kHz, ``pod`` [64, 500000] at 20 kHz:
+    rows cut at random, never and from the start), on short rows and with a
+    window that is not a multiple of 4; at both shapes a call's host ms (its
+    launches), its stream ms, the device ms and count of its kernels from
+    the profiler beside the byte bound of one read of the waveform; then the
+    waveform's copy home, pageable against pinned, and the first allocation
+    of a pinned block against a cached one (each logged)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tacotron_multispeaker_torch.audio import AudioProcessor
+    from tacotron_multispeaker_torch.config import AudioConfig
+    g = torch.Generator(device="cuda").manual_seed(24)
+
+    def case(B, N, cut, thr):
+        wav = (torch.rand(B, N, generator=g, device="cuda") - 0.5) * (8 * thr)
+        return torch.where(torch.arange(N, device="cuda") >= cut[:, None], wav * 0.1, wav)
+
+    # 0.8 s windows at 22.05 and 20 kHz; 0.3 s at 22.05 kHz is 6615, three
+    # samples past its four hops
+    for tag, sr, sec, B, N in (("vctk", 22050, 0.8, 32, 275000), ("pod", 20000, 0.8, 64, 500000),
+                               ("short", 22050, 0.8, 5, 22051),
+                               ("window_not_by_4", 22050, 0.3, 8, 90000)):
+        ap = AudioProcessor(AudioConfig(sample_rate=sr, min_silence_sec=sec), device="cuda")
+        thr = ap.silence()[1]
+        cuts = {"random": torch.randint(0, N, (B,), generator=g, device="cuda"),
+                "none": torch.full((B,), N, device="cuda"),
+                "all": torch.zeros(B, dtype=torch.long, device="cuda")}
+        for how, cut in cuts.items():
+            wav = case(B, N, cut, thr)
+            got = ap.find_endpoints(wav).cpu().tolist()
+            host = wav.cpu()
+            want = ap.find_endpoints(host).tolist()
+            if got != want or got != [ap.find_endpoint(r) for r in host.numpy()]:
+                raise AssertionError(f"endpoint {tag} cut={how}: card {got[:8]}, cpu {want[:8]}")
+            if tag in ("vctk", "pod") and how != "all":
+                run = lambda: ap.find_endpoints(wav)  # noqa: E731
+                call = cuda_time_ms(run, reps=20)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    run()
+                host_ms = (time.perf_counter() - t0) * 1e3 / 20
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        run()
+                    torch.cuda.synchronize()
+                kernels = [e.time_range.end - e.time_range.start for e in prof.events()
+                           if e.device_type == DeviceType.CUDA]
+                bound, _ = _bound_ms(_nbytes(wav))
+                log(f"[endpoint] {tag} B={B} N={N} cut={how}: a call {host_ms:.4f} ms on "
+                    f"the host, {call:.4f} ms on the stream, its {len(kernels) / 5:.0f} "
+                    f"kernels {sum(kernels) / 5 / 1e3:.4f} device ms; one read of the "
+                    f"waveform's bytes {bound:.4f} ms; rows cut {sum(e < N for e in got)} "
+                    f"of {B}")
+            del wav, host
+        log(f"[endpoint] {tag} B={B} N={N}: card equals the cpu and the host's "
+            f"find_endpoint (random, uncut and all-silent rows)")
+    for tag, B, N in (("vctk", 32, 275000), ("pod", 64, 500000)):
+        wav = torch.zeros(B, N, device="cuda")
+        pageable = cuda_time_ms(lambda: wav.cpu(), reps=5)
+        host = torch.empty(B, N, pin_memory=True)
+        pinned = cuda_time_ms(lambda: host.copy_(wav, non_blocking=True), reps=5)
+        del host
+        # twice the waveform: a power-of-two size class the caching host
+        # allocator holds no block of yet
+        t0 = time.perf_counter()
+        fresh = torch.empty(2 * B * N, pin_memory=True)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        del fresh
+        t0 = time.perf_counter()
+        again = torch.empty(2 * B * N, pin_memory=True)
+        cached_ms = (time.perf_counter() - t0) * 1e3
+        del again
+        gbs = _nbytes(wav) / 1e6
+        log(f"[endpoint] {tag} waveform copy home, {gbs:.1f} MB: pageable {pageable:.3f} ms "
+            f"({gbs / pageable:.2f} GB/s), pinned {pinned:.3f} ms ({gbs / pinned:.2f} GB/s); "
+            f"a new pinned block of twice that {first_ms:.3f} ms, cached {cached_ms:.4f} ms")
+
+
 GL_KERNELS = ("gl_fwd", "gl_inv", "gl_ola")    # kernel-name stems of csrc/gl_iteration.cu
 
 
@@ -3348,8 +3433,10 @@ SERVE_TEXTS = [
 
 def phase_serve(path="serve", texts=SERVE_TEXTS):
     """Serve full-width multispeaker_vctk on one path: warmup, B=1 requests
-    over both input buckets, one B=32 batch, each with its exact launches;
-    every count set to 0 just before and read just after."""
+    over both input buckets, one B=32 batch, each with its exact launches
+    and one endpoint search on the card; every count set to 0 just before
+    and read just after.  The batch's rows are its untrimmed waveform cut at
+    the host's ``find_endpoint``."""
     import numpy as np
     import torch
     from scipy.io import wavfile
@@ -3364,10 +3451,22 @@ def phase_serve(path="serve", texts=SERVE_TEXTS):
     max_samples = steps * cfg.model.outputs_per_step * cfg.audio.hop_length
     tag = f"[{path}]"
 
+    searched_on = []                     # the device of each endpoint search
+    find_endpoints = syn.ap.find_endpoints
+
+    def spy(wavs):
+        searched_on.append(wavs.device.type)
+        return find_endpoints(wavs)
+    syn.ap.find_endpoints = spy
+
     def expect(before, what):
         got, want = _delta(before), path_launches(path, cfg, steps)
         if got != want:
             raise AssertionError(f"{path} {what}: launches {got}, expected {want}")
+        if searched_on != ["cuda"]:
+            raise AssertionError(f"{path} {what}: endpoint searches on {searched_on}, "
+                                 "expected one on the card")
+        searched_on.clear()
 
     def check_wav(w, what):
         if not (w.ndim == 1 and 0 < w.shape[0] <= max_samples and np.isfinite(w).all()):
@@ -3377,6 +3476,7 @@ def phase_serve(path="serve", texts=SERVE_TEXTS):
     t0 = time.perf_counter()
     syn.warmup()
     torch.cuda.synchronize()
+    searched_on.clear()
     log(f"{tag} warmup (both input buckets) {time.perf_counter() - t0:.2f} s")
 
     buckets = set()
@@ -3416,6 +3516,28 @@ def phase_serve(path="serve", texts=SERVE_TEXTS):
     expect(before, "synthesize_batch(B=32)")
     for i, w in enumerate(wavs):
         check_wav(w, f"batch row {i}")
+    # the same batch again, its untrimmed waveform kept on the way
+    untrimmed, make_fn = [], syn._make_fn
+
+    def keep(*args, **kw):
+        fn = make_fn(*args, **kw)
+
+        def run(*a):
+            out = fn(*a)
+            untrimmed.append(out[0].cpu().numpy())
+            return out
+        return run
+    syn._make_fn = keep
+    again, _ = syn.synthesize_batch(batch, spks, max_iters=steps, seed=1,
+                                    pad_to=syn.serve_bucket_for(batch))
+    del syn._make_fn
+    searched_on.clear()
+    (full,) = untrimmed
+    ends = [syn.ap.find_endpoint(row) for row in full]
+    if not all(np.array_equal(w, row[:e]) for w, row, e in zip(again, full, ends)):
+        raise AssertionError(f"{path} B=32: rows are not the waveform cut at find_endpoint")
+    log(f"{tag} batch B=32: each row is its untrimmed waveform cut at the host's "
+        f"find_endpoint; {sum(e < full.shape[1] for e in ends)} of 32 rows cut")
     audio_s = sum(w.shape[0] for w in wavs) / sr
     untrimmed_s = 32 * max_samples / sr
     log(f"{tag} batch B=32 max_iters={steps}: {dt * 1e3:.2f} ms, {untrimmed_s:.1f} s "
@@ -4009,6 +4131,7 @@ def main() -> int:
     kern.update(conv_bank=phase_conv_bank(), attention_step=phase_attention_step(),
                 attention_step_partial=phase_attention_partial(),
                 overlap_add=phase_overlap_add(), gl_iteration=phase_gl_iteration())
+    phase_endpoint()
     for path in ("serve", "serve_location"):
         phase_generate_reference(path)
     for path in PATHS:

@@ -2,8 +2,9 @@
 
 Port of ``tacotron_multispeaker_tpu/audio/__init__.py``: ``spectrogram``,
 ``melspectrogram`` (analysis) and ``inv_spectrogram`` (Griffin-Lim) run on
-the processor's device; WAV reading, encoding and endpointing run on the
-host.
+the processor's device; WAV reading and encoding run on the host, and
+``find_endpoint`` on a host array; ``find_endpoints``, the same over a batch,
+runs on the batch's device.
 """
 
 from __future__ import annotations
@@ -92,14 +93,47 @@ class AudioProcessor:
                 angles=angles)
         return wav.cpu().numpy()
 
-    def find_endpoint(self, wav: np.ndarray) -> int:
-        """Index of the first long trailing silence."""
-        window_length = int(self.cfg.sample_rate * self.cfg.min_silence_sec)
-        hop = window_length // 4
+    def silence(self) -> tuple[int, float]:
+        """The endpoint's silence: (window in samples, the f32 amplitude
+        that every sample of a window stays below)."""
+        window = int(self.cfg.sample_rate * self.cfg.min_silence_sec)
         threshold = float(dsp.db_to_amp(
             torch.tensor(self.cfg.silence_threshold_db, dtype=torch.float32)))
+        return window, threshold
+
+    def find_endpoint(self, wav: np.ndarray) -> int:
+        """Index of the first long trailing silence."""
+        window_length, threshold = self.silence()
+        hop = window_length // 4
         wav = np.asarray(wav)
         for x in range(hop, len(wav) - window_length, hop):
             if np.max(np.abs(wav[x: x + window_length])) < threshold:
                 return x + hop
         return len(wav)
+
+    def find_endpoints(self, wavs: torch.Tensor) -> torch.Tensor:
+        """:meth:`find_endpoint` of each row of f32 [B, N], bit for bit, on
+        the waveform's device with no host sync → int64 [B].  The window
+        that starts at ``j·hop`` is chunks j..j+3 of ``hop`` samples and the
+        first ``window - 4·hop`` (< 4) samples of chunk j+4, so one pass of
+        per-chunk maxima of |w| decides every window (a NaN is never quiet)."""
+        if wavs.dim() != 2 or wavs.dtype != torch.float32:
+            raise ValueError(f"find_endpoints takes float32 [B, N]; got {wavs.dtype} "
+                             f"{tuple(wavs.shape)}")
+        window, threshold = self.silence()
+        B, N = wavs.shape
+        hop = window // 4
+        if hop < 1:
+            raise ValueError(f"find_endpoints: a window of {window} samples has no hop")
+        n = len(range(hop, N - window, hop))           # window starts hop·1 .. hop·n
+        if B == 0 or n == 0:
+            return torch.full((B,), N, dtype=torch.long, device=wavs.device)
+        quiet = wavs[:, :(n + 4) * hop].abs().view(B, n + 4, hop).amax(2) < threshold
+        silent = quiet[:, 1:n + 1] & quiet[:, 2:n + 2] & quiet[:, 3:n + 3] & quiet[:, 4:n + 4]
+        rest = window - 4 * hop
+        if rest:
+            at = torch.arange(5, n + 5, device=wavs.device)[:, None] * hop + torch.arange(
+                rest, device=wavs.device)
+            silent &= wavs[:, at].abs().amax(2) < threshold
+        first = (silent.int().argmax(1) + 2) * hop
+        return torch.where(silent.any(1), first, N)

@@ -3,11 +3,13 @@
 Port of ``tacotron_multispeaker_tpu/synthesizer.py``.  ``synthesize(text[,
 speaker_id])`` returns WAV bytes; ``synthesize_batch`` decodes a padded
 batch: encoder → decoder (the fused loop, or the per-step decode; see
-``Tacotron.generate``) → post-net → Griffin-Lim, all on the device, then
-endpoint trimming on the host.  ``parallel.use_pallas`` routes the conv
-banks, the per-step attention and Griffin-Lim through their kernels, as it
-does in the JAX package.  Requests pad to the smallest
-input bucket that fits, as in the JAX package.
+``Tacotron.generate``) → post-net → Griffin-Lim → each row's endpoint
+(``AudioProcessor.find_endpoints``), all on the device; one pinned copy
+then brings the waveform home and the host cuts each row at its endpoint by
+slicing.  ``parallel.use_pallas`` routes the conv banks, the per-step
+attention and Griffin-Lim through their kernels, as it does in the JAX
+package.  Requests pad to the smallest input bucket that fits, as in the
+JAX package.
 
 ``make_sharded_synth`` is pod-scale batch synthesis over a (data, model)
 mesh of ranks (parallel/), one process per mesh position: each rank
@@ -90,6 +92,17 @@ class Synthesizer:
                          pad_to: int | None = None, gl_angles=None):
         """Returns (list of trimmed np wavs, alignments [B, steps, L]).
 
+        Each row's endpoint (``AudioProcessor.find_endpoint``'s, bit for bit)
+        is found on the device; the whole waveform, the endpoints and the
+        alignments come home in one copy (pinned memory on a CUDA device),
+        and each returned wav is a view of its row up to the endpoint.  The
+        arrays of a call never share memory with another call's: on a CUDA
+        device they hold the call's page-locked block (PyTorch's caching host
+        allocator rounds it up to a power of two, 64 MiB for a [32, 275000]
+        waveform) until the last of them is dropped.  So a call made while
+        earlier results are held takes another block, and pins a new one
+        (tens of ms) where the allocator has none of that size free.
+
         ``seed`` seeds the prenet dropout masks and the Griffin-Lim initial
         phases; ``gl_angles`` ([B, frames, bins]) replaces the latter."""
         if self.shards:
@@ -116,11 +129,13 @@ class Synthesizer:
                 angles = None if gl_angles is None else torch.as_tensor(
                     np.array(gl_angles, np.float32), device=dev)
             wavs, aligns, _ = self._make_fn(iters)(inputs, lengths, sids, gen, angles)
+            with tracing.span("synth.trim") as trim:
+                ends = self.ap.find_endpoints(wavs)
             with tracing.span("synth.copy"):
-                wavs, aligns = wavs.cpu().numpy(), aligns.cpu().numpy()
-            with tracing.span("synth.trim"):
-                trimmed = [w[: self.ap.find_endpoint(w)] for w in wavs]
-        return trimmed, aligns
+                wavs, ends, aligns = _to_host(dev, wavs, ends, aligns)
+            trim.note(rows_cut=int((ends < wavs.shape[1]).sum()),
+                      kept=float(ends.sum()) / max(wavs.size, 1))
+        return [w[:e] for w, e in zip(wavs, ends)], aligns
 
     # -- the decode+vocode function -------------------------------------------
 
@@ -293,3 +308,18 @@ class Synthesizer:
             [text], [speaker_id or 0], seed=seed,
             pad_to=self.serve_bucket_for([text]))
         return self.ap.wav_bytes(wavs[0])
+
+
+def _to_host(dev, *tensors) -> list[np.ndarray]:
+    """The tensors as numpy arrays on the host.  On a CUDA device: a
+    non-blocking copy of each into page-locked memory from PyTorch's caching
+    host allocator, then one wait.  Each call takes blocks of its own, held
+    while any array of them lives, so a later call never writes into arrays
+    returned earlier."""
+    if dev.type != "cuda":
+        return [t.numpy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()
+    return [h.numpy() for h in host]

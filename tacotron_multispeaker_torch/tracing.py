@@ -22,9 +22,11 @@ device times resolved (one synchronize), ``clear()`` empties the list, and
 
 The synthesis path's spans (all under one ``synth.call`` root a call):
 ``synth.prepare`` (texts to padded device tensors), ``synth.encoder``,
-``synth.decode``, ``synth.postnet``, ``synth.griffin_lim``, ``synth.copy``
-(the host's wait for the device and the waveform's copy), ``synth.trim``
-(the host's endpoint search) and, in pod synthesis, ``synth.gather``.  The
+``synth.decode``, ``synth.postnet``, ``synth.griffin_lim``, ``synth.trim``
+(the launches of each row's endpoint search on the device; it notes
+``rows_cut``, the rows cut short, and ``kept``, the share of the decoded
+samples returned), ``synth.copy`` (the copies to pinned host memory and the
+host's one wait for the device) and, in pod synthesis, ``synth.gather``.  The
 train loop's: ``train.next_batch``, ``train.step``, ``train.sync`` and
 ``train.checkpoint``.
 
@@ -103,7 +105,8 @@ class _Span:
         self.name, self.device, self.attrs = name, device, attrs
 
     def note(self, **attrs) -> None:
-        """Add attributes known only once the span has started."""
+        """Add attributes known only once the span has started (or closed:
+        its record keeps the same attributes)."""
         self.attrs.update(attrs)
 
     def __enter__(self):

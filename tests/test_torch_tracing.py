@@ -3,13 +3,17 @@
 without a profiler; under one, a ``synthesize_batch`` call's spans nest
 under one ``synth.call`` root, agree with the profiler's own events, and
 feed the benchmark's per-call readers; the profile window's idle time by
-innermost host span."""
+innermost host span.  Also what ``synthesize_batch`` returns: each row is
+the untrimmed waveform cut at ``find_endpoint``, no later call writes into
+an earlier call's arrays, and ``synth.trim`` notes the rows cut and the
+share kept (on the CPU, and on a card with the ``gpu`` marker)."""
 
 import json
 import sys
 import threading
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 from torch.autograd import DeviceType
@@ -24,7 +28,7 @@ from tacotron_multispeaker_torch.synthesizer import Synthesizer
 OV = "model.num_speakers=4,model.max_iters=6,audio.gl_method=dft_f32"
 TEXTS, SPEAKERS = ["hello there, a test.", "a short one"], [0, 3]
 CHILDREN = ["synth.prepare", "synth.encoder", "synth.decode", "synth.postnet",
-            "synth.griffin_lim", "synth.copy", "synth.trim"]
+            "synth.griffin_lim", "synth.trim", "synth.copy"]
 READERS = {"prepare_ms_per_call.synth": "host", "encoder_ms_per_call.synth": "device",
            "decode_ms_per_call.synth": "device", "postnet_ms_per_call.synth": "device",
            "griffin_lim_ms_per_call.synth": "device", "trim_ms_per_call.synth": "host"}
@@ -82,6 +86,76 @@ def test_call_spans_nest_under_one_root(synth):
         assert tracing.self_ms(r, recs) >= 0
     # the children account for the call: its self time is the glue between them
     assert tracing.self_ms(root, recs) < root.host_ms
+
+
+# 40 steps: 54,725 samples a row, past find_endpoint's window and hop (22,050
+# at 22.05 kHz); a linear-projection bias of 0.4 leaves one of the four
+# rows silent from its start and the others above the threshold throughout
+CUT_OV = "model.num_speakers=4,model.max_iters=40,audio.gl_method=dft_f32"
+CUT_TEXTS, CUT_SPEAKERS = (["hello there, a test.", "a short one", "and a third text here",
+                            "four"], [0, 3, 1, 2])
+DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)]
+
+
+def cut_synth(device):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python -m pytest -m gpu tests/test_torch_*.py")
+    s = Synthesizer(get_config("tiny", CUT_OV), device=device, seed=0)
+    with torch.no_grad():
+        s.model.linear_proj.bias.fill_(0.4)
+    return s
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_rows_are_the_untrimmed_waveform_cut_at_find_endpoint(device, monkeypatch):
+    s = cut_synth(device)
+    untrimmed = []
+    make_fn = s._make_fn
+
+    def spy(*args, **kw):
+        fn = make_fn(*args, **kw)
+
+        def run(*a):
+            out = fn(*a)
+            untrimmed.append(out[0].cpu().numpy().copy())
+            return out
+        return run
+    monkeypatch.setattr(s, "_make_fn", spy)
+    wavs, aligns = s.synthesize_batch(CUT_TEXTS, CUT_SPEAKERS, seed=1, pad_to=32)
+    (full,) = untrimmed
+    assert full.shape == (4, 54725) and aligns.shape == (4, 40, 32)
+    ends = [s.ap.find_endpoint(row) for row in full]
+    assert 0 < sum(e < full.shape[1] for e in ends) < 4       # cut and uncut rows
+    for w, row, e in zip(wavs, full, ends):
+        assert w.dtype == np.float32 and np.array_equal(w, row[:e])
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_a_later_call_leaves_earlier_arrays_alone(device):
+    s = cut_synth(device)
+    calls = [s.synthesize_batch(CUT_TEXTS, CUT_SPEAKERS, seed=1, pad_to=32)]
+    kept = [[w.copy() for w in calls[0][0]], calls[0][1].copy()]
+    for seed in (2, 3, 4):           # other phases and dropout: other samples
+        calls.append(s.synthesize_batch(CUT_TEXTS[::-1], CUT_SPEAKERS, seed=seed, pad_to=32))
+    wavs, aligns = calls[0]
+    assert all(np.array_equal(a, b) for a, b in zip(wavs, kept[0]))
+    assert np.array_equal(aligns, kept[1])
+    assert not np.array_equal(calls[-1][1], aligns)
+
+
+def test_trim_notes_rows_cut_and_the_share_kept():
+    s = cut_synth("cpu")
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        wavs, _ = s.synthesize_batch(CUT_TEXTS, CUT_SPEAKERS, seed=1, pad_to=32)
+    recs = tracing.spans()
+    (root,) = [r for r in recs if r.name == "synth.call"]
+    assert [r.name for r in recs if r.parent == root.id] == CHILDREN
+    (trim,) = [r for r in recs if r.name == "synth.trim"]
+    n = 54725                                    # the untrimmed row
+    assert trim.attrs["rows_cut"] == sum(len(w) < n for w in wavs) == 1
+    assert trim.attrs["kept"] == pytest.approx(sum(len(w) for w in wavs) / (4 * n))
+    assert 0 < trim.attrs["kept"] < 1
 
 
 def test_profiler_events_agree_with_the_records(synth):
