@@ -61,7 +61,11 @@ Phases (no failure is caught; any exception exits non-zero):
    Griffin-Lim with the overlap-add kernel): ``warmup()``, B=1
    ``synthesize()`` requests over both input buckets and several speakers,
    one B=32 batch of 200 decoder steps, each with its exact launches of
-   every kernel (``path_launches``).
+   every kernel (``path_launches``).  ``serve_tacotron2``: full-width
+   ``tacotron2_sv2tts`` B=32 batches at buckets 96 and 192, 1,000 steps
+   replayed from CUDA graphs, each kernel's launches counted through the
+   replays; the captured decode held bit for bit against its eager step
+   loop, and each step's attention kernel against the plain attention.
 6. Where the time goes: a profile of a B=1 request and the B=32 batch on
    each serving path and of one full-width train step (device busy, idle
    share, top kernels).
@@ -109,7 +113,7 @@ Phases (no failure is caught; any exception exits non-zero):
    sharded decode with kernel 10), each rank's launches checked per
    request, request ms and audio-s/s, a profile on rank 0.
 
-Each path (three serving paths, training, ``gru``, ``train_loop``, the
+Each path (three serving paths, ``serve_tacotron2``, training, ``gru``, ``train_loop``, the
 paths of phase 7c, three sharded paths) is driven
 with every launch count set to 0 just before it and read just after (on
 each rank for the sharded paths).  Prints the per-request
@@ -1775,11 +1779,12 @@ def phase_attention_step():
     tol = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-3, 1e-2)}
     worst = 0.0
     # the serving shapes (B=1 L=96, 192; B=32 L=192), one position, ragged
-    # B=3 L=13, and rows that are not 16-byte multiples (A=100, D=72: the
-    # direct route); each at the plan's C and every C the card takes; row 1
-    # of B > 1 fully masked
+    # B=3 L=13, rows that are not 16-byte multiples (A=100, D=72: the
+    # direct route) and Tacotron 2's (B=32 L=96, 192 A=128 D=768); each at
+    # the plan's C and every C the card takes; row 1 of B > 1 fully masked
     cases = [(1, 1, 256, 320), (1, 96, 256, 320), (1, 192, 256, 320), (3, 13, 256, 320),
-             (32, 192, 256, 320), (3, 13, 100, 72), (3, 96, 100, 72)]
+             (32, 192, 256, 320), (3, 13, 100, 72), (3, 96, 100, 72),
+             (32, 96, 128, 768), (32, 192, 128, 768)]
     for ci, (B, L, A, D) in enumerate(cases):
         for loc in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
@@ -3570,6 +3575,102 @@ SHARD_PATHS = {
 SHARD_REQUESTS = 2          # timed requests per path (after one warm-up)
 
 
+def phase_serve_tacotron2():
+    """Serve ``tacotron2_sv2tts`` at its published widths with the
+    benchmark cell's weight biases (loud frames, no row stops): a B=32
+    ``synthesize_batch`` at each of the cell's buckets (96, 192), graphs
+    captured by a call before, with each kernel's launches counted
+    through the graph replays (every count set to 0 just before and read
+    just after; the decode's steps and replays from its span).  Then the
+    captured decode at B=32 L=192 against the eager step loop, bit for
+    bit, and each of that loop's 1,000 attention steps against the plain
+    attention on the same inputs (phase_attention_step's bf16 limits)."""
+    import numpy as np
+    import torch
+    from tacotron_multispeaker_torch import tracing
+    from tacotron_multispeaker_torch.config import get_config
+    from tacotron_multispeaker_torch.ops import attention_step as ast
+    from tacotron_multispeaker_torch.synthesizer import Synthesizer
+    from tacotron_multispeaker_torch.text import text_to_sequence
+    cfg = get_config("tacotron2_sv2tts")
+    B, S = 32, cfg.model.max_iters
+    syn = Synthesizer(cfg, device="cuda", seed=0)
+    m, dev = syn.model, syn.device
+    with torch.no_grad():
+        m.frame_proj.bias.fill_(0.6)
+        m.stop_proj.bias.fill_(-10.0)
+    texts = [SERVE_TEXTS[i % len(SERVE_TEXTS)][0] for i in range(B)]
+    spks = [(7 * i) % cfg.model.num_speakers for i in range(B)]
+    failures, total = [], {name: 0 for name in _counters()}
+    for L in (96, 192):
+        syn.synthesize_batch(texts, spks, seed=1, pad_to=L)
+        torch.cuda.synchronize()
+        reset_counts()
+        tracing.clear()
+        t0 = time.perf_counter()
+        with tracing.record():
+            wavs, aligns = syn.synthesize_batch(texts, spks, seed=2, pad_to=L)
+        dt = time.perf_counter() - t0
+        got = read_counts()
+        recs = tracing.spans()
+        tracing.clear()
+        (dec,) = [r for r in recs if r.name == "synth.decode"]
+        steps, replays = dec.attrs["steps"], dec.attrs["replays"]
+        want = {name: 0 for name in got}
+        want.update(attention_step=steps, gl_iteration=1)
+        log(f"[serve_tacotron2] B={B} L={L} {steps} steps in {replays} replays of a "
+            f"{steps // replays}-step graph: call {dt * 1e3:.1f} ms (spans on, no profiler), "
+            f"decode {dec.device_ms:.1f} ms device-stream; launches counted through the "
+            f"replays {json.dumps({k: v for k, v in got.items() if v})}")
+        if got != want or steps != S:
+            failures.append(f"L={L}: launches {got}, expected {want}")
+        if not (len(wavs) == B and aligns.shape == (B, S, L)
+                and all(len(w) > 0 and np.isfinite(w).all() for w in wavs)):
+            failures.append(f"L={L}: {len(wavs)} rows, alignments {aligns.shape}")
+        total = {k: total[k] + got[k] for k in total}
+    L = 192
+    seqs = [np.asarray(text_to_sequence(t, cfg.cleaners), np.int64)[:L] for t in texts]
+    inputs = torch.as_tensor(np.stack([np.pad(q, (0, L - len(q))) for q in seqs]), device=dev)
+    lengths = torch.as_tensor([len(q) for q in seqs], device=dev)
+    keep = 1.0 - cfg.model.prenet_dropout
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kernel, worst = ast.attention_step, torch.zeros(2, device=dev)
+
+    def both(*args, **kw):
+        ctx, al = kernel(*args, **kw)
+        rc, ra = ast.attention_step_reference(*args)
+        torch.maximum(worst, torch.stack([(al - ra).abs().max(), (ctx - rc).abs().max()]),
+                      out=worst)
+        return ctx, al
+    with torch.inference_mode():
+        memory = m.encode(inputs, lengths, m.speaker_vectors(
+            torch.as_tensor(spks, device=dev))).contiguous()
+        keys = m.attention.precompute_keys(memory).contiguous()
+        mask = (torch.arange(L, device=dev)[None, :] < lengths[:, None]).contiguous()
+        masks = [(torch.rand((S, B, n), generator=gen, device=dev) < keep).float() / keep
+                 for n in cfg.model.prenet_depths]
+        graph = m.decode(keys, memory, mask, masks, S)
+        ast.attention_step = both
+        try:
+            eager = m.decode_eager(keys, memory, mask, masks, S)
+        finally:
+            ast.attention_step = kernel
+        torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(graph[:3], eager)]
+    e_al, e_ctx = worst.tolist()
+    log(f"[serve_tacotron2] B={B} L={L} A=128 D=768 bf16, {S} steps: graph-replayed decode "
+        f"vs the eager step loop bit for bit (frames, alignments, stop logits): {same}; "
+        f"each eager step's kernel 9 vs the plain attention on its inputs: align "
+        f"{e_al:.3e} (tol 1e-03) ctx {e_ctx:.3e} (tol 1e-02)")
+    if not all(same):
+        failures.append(f"graph decode differs from the eager loop: {same}")
+    if not (e_al <= 1e-3 and e_ctx <= 1e-2):
+        failures.append(f"kernel 9 vs plain attention: align {e_al} ctx {e_ctx}")
+    if failures:
+        raise AssertionError("serve_tacotron2: " + "; ".join(failures))
+    return total
+
+
 def shard_launches(path, cfg, n_steps):
     """Each kernel's launches on one rank for one request of ``n_steps``."""
     want = {name: 0 for name in _counters()}
@@ -3701,7 +3802,7 @@ def phase_shard():
         torch.as_tensor(inputs, device=dev), torch.as_tensor(lengths, device=dev),
         torch.as_tensor(sids, device=dev), torch.Generator(device=dev),
         torch.as_tensor(angles, dtype=torch.float32, device=dev))
-    ref = [t.cpu() for t in ref]
+    ref = [t.cpu() for t in ref[:3]]
     t0 = time.perf_counter()
     outs = run_ranks(_shard_rank, 4, (ov, inputs, lengths, sids, angles, iters), timeout=900)
     log(f"[shard] four ranks on {torch.cuda.device_count()} card(s), all paths: "
@@ -4137,6 +4238,7 @@ def main() -> int:
     for path in PATHS:
         phase_generate_bf16(path)
     launches = {path: phase_serve(path) for path in PATHS}
+    launches["serve_tacotron2"] = phase_serve_tacotron2()
     phase_train_reference()
     phase_train_bf16()
     launches["train"], bare_step_s = phase_train()
@@ -4152,7 +4254,7 @@ def main() -> int:
         launches.update(phase_train_parallel(base))
     finally:
         shutil.rmtree(base, ignore_errors=True)
-    paths = (*PATHS, "train", "gru", "train_loop", "validate", "eval", "eval_pallas",
+    paths = (*PATHS, "serve_tacotron2", "train", "gru", "train_loop", "validate", "eval", "eval_pallas",
              "train_location", "adam_bf16", "gl_methods", *SHARD_PATHS, *TRAIN_PAR_PATHS,
              "train_loop_dp")
     line = {"kernels": [

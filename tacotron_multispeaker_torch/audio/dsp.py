@@ -158,6 +158,34 @@ def denormalize_db(s: torch.Tensor, min_level_db: float) -> torch.Tensor:
     return (torch.clamp(s, 0.0, 1.0) * -min_level_db) + min_level_db
 
 
+_inv_mel_bases: dict = {}
+
+
+def inv_mel_basis(sample_rate: int, n_fft: int, num_mels: int, device) -> torch.Tensor:
+    """[num_mels, n_fft//2+1] f32 on ``device``: the transpose of the mel
+    basis's pseudo-inverse (numpy's ``pinv`` in float64), built once a
+    device."""
+    key = (sample_rate, n_fft, num_mels, torch.device(device))
+    if key not in _inv_mel_bases:
+        pinv = np.linalg.pinv(mel_basis(sample_rate, n_fft, num_mels).astype(np.float64))
+        _inv_mel_bases[key] = torch.as_tensor(pinv.T.astype(np.float32), device=device)
+    return _inv_mel_bases[key]
+
+
+def mel_to_linear(mel: torch.Tensor, *, sample_rate: int, n_fft: int,
+                  ref_level_db: float, min_level_db: float) -> torch.Tensor:
+    """Normalised mel [..., frames, num_mels] → the normalised linear
+    spectrogram [..., frames, bins] that :func:`inv_linear_spectrogram`
+    reads: denormalised, dB to amplitude, through the mel basis's
+    pseudo-inverse, clamped at 1e-10, and back to the normalised dB domain
+    (Real-Time-Voice-Cloning's ``inv_mel_spectrogram``, before its
+    Griffin-Lim).  f32 products."""
+    amp = db_to_amp(denormalize_db(mel.float(), min_level_db) + ref_level_db)
+    basis = inv_mel_basis(sample_rate, n_fft, mel.shape[-1], mel.device)
+    linear = torch.clamp(amp @ basis, min=1e-10)
+    return normalize_db(amp_to_db(linear) - ref_level_db, min_level_db)
+
+
 # ----------------------------------------------------------------------------
 # STFT analysis and spectrogram features
 # ----------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 
 A copy of ``tacotron_multispeaker_tpu/config.py`` (the same dataclasses,
 fields, defaults and presets), kept in the port so that it imports nothing
-of the JAX package.  Field meanings are documented there; the notes here
-say only how the port reads them.
+of the JAX package.  The port adds what the JAX package lacks: Tacotron 2
+(``ModelConfig.architecture`` and the fields after ``compute_dtype``) and
+its presets ``tacotron2_sv2tts`` and ``tacotron2_tiny``.  Field meanings
+are documented there; the notes here say only how the port reads them.
 
 Kernel switches.  A port kernel runs exactly when its inputs lie on a
 CUDA device, and its plain PyTorch version exactly when they lie on the
@@ -74,8 +76,15 @@ class AudioConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Tacotron-1 architecture parameters."""
+    """Architecture parameters: Tacotron-1's, and below them the fields that
+    only Tacotron 2 (``architecture="tacotron2"``, models/tacotron2.py)
+    reads.  Tacotron 2 also reads ``embed_depth``, ``prenet_depths``, the
+    attention fields, ``outputs_per_step``, ``max_iters``, ``num_speakers``,
+    ``speaker_embed_depth``, ``speaker_condition`` (``"encoder_output"``),
+    ``prenet_dropout``, ``zoneout`` and ``compute_dtype``."""
 
+    # the model Synthesizer builds (models.create_model): "tacotron" | "tacotron2"
+    architecture: str = "tacotron"
     embed_depth: int = 256
     prenet_depths: Tuple[int, ...] = (256, 128)
     encoder_depth: int = 256               # CBHG proj / GRU size (128 per dir)
@@ -108,6 +117,16 @@ class ModelConfig:
     prenet_dropout: float = 0.5
     zoneout: float = 0.0
     compute_dtype: str = "bfloat16"        # "bfloat16" | "float32"
+    # Tacotron 2 (Shen et al., arXiv:1712.05884 §2.2-2.3; NVIDIA/tacotron2)
+    encoder_conv_layers: int = 3
+    encoder_conv_channels: int = 512
+    encoder_conv_width: int = 5
+    encoder_lstm_units: int = 256          # per direction
+    decoder_lstm_units: int = 1024         # the attention LSTM and the decoder LSTM
+    postnet_conv_layers: int = 5
+    postnet_conv_channels: int = 512
+    postnet_conv_width: int = 5
+    stop_threshold: float = 0.5            # a row stops at the first sigmoid(stop) above it
 
 
 @dataclass(frozen=True)
@@ -320,6 +339,40 @@ def pod_synthesis() -> Config:
     )
 
 
+def tacotron2_sv2tts() -> Config:
+    """Tacotron 2 at its published widths with SV2TTS speaker conditioning
+    (Jia et al., arXiv:1806.04558 §2.2): a 109 x 256 table of unit-length
+    speaker vectors concatenated to every encoder output, r = 1, 1000
+    decoder steps, VCTK's speakers at 22.05 kHz."""
+    return Config(
+        name="tacotron2_sv2tts",
+        audio=AudioConfig(sample_rate=22050),
+        model=ModelConfig(
+            architecture="tacotron2", embed_depth=512, prenet_depths=(256, 256),
+            attention_depth=128, attention_type="location", outputs_per_step=1,
+            max_iters=1000, num_speakers=109, speaker_embed_depth=256,
+            speaker_condition=("encoder_output",), zoneout=0.1),
+        parallel=ParallelConfig(use_pallas=True),
+    )
+
+
+def tacotron2_tiny() -> Config:
+    """A CPU-sized Tacotron 2 with the same structure (tests)."""
+    return Config(
+        name="tacotron2_tiny",
+        audio=AudioConfig(num_mels=80, num_freq=513, sample_rate=22050),
+        model=ModelConfig(
+            architecture="tacotron2", embed_depth=32, prenet_depths=(32, 32),
+            attention_depth=16, attention_type="location", attention_location_filters=4,
+            attention_location_kernel=7, outputs_per_step=1, max_iters=30,
+            num_speakers=4, speaker_embed_depth=8, speaker_condition=("encoder_output",),
+            zoneout=0.1, compute_dtype="float32", encoder_conv_channels=32,
+            encoder_lstm_units=16, decoder_lstm_units=48, postnet_conv_channels=32),
+        train=TrainConfig(batch_size=8, max_input_length=64,
+                          input_bucket_boundaries=(32, 64)),
+    )
+
+
 PRESETS = {
     "tiny": tiny,
     "single_speaker": single_speaker,
@@ -327,6 +380,8 @@ PRESETS = {
     "multispeaker_vctk": multispeaker_vctk,
     "large_multispeaker": large_multispeaker,
     "pod_synthesis": pod_synthesis,
+    "tacotron2_sv2tts": tacotron2_sv2tts,
+    "tacotron2_tiny": tacotron2_tiny,
 }
 
 

@@ -2,13 +2,15 @@
 
 from .losses import priority_bins, tacotron_loss  # noqa: F401
 from .tacotron import Tacotron, TacotronOutput  # noqa: F401
+from .tacotron2 import Tacotron2, Tacotron2Output  # noqa: F401
 
-_MODELS = {"tacotron": Tacotron}
+# by ``model.architecture``: Tacotron-1 (the JAX package's) and Tacotron 2
+_MODELS = {"tacotron": Tacotron, "tacotron2": Tacotron2}
 
 
-def create_model(name: str, cfg, seq_mesh=None, bn_group=None) -> Tacotron:
+def create_model(name: str, cfg, seq_mesh=None, bn_group=None):
     """The model ``name`` for ``cfg``, on the CPU, with uninitialised weights
-    (``Tacotron.reset_parameters`` draws them, or load a state dict).
+    (``reset_parameters`` draws them, or load a state dict).
     ``seq_mesh``: the sequence-sharded decode over the mesh's model axis.
     ``bn_group``: a process group over which the BatchNorms take their
     training statistics (the JAX ``bn_axis``)."""

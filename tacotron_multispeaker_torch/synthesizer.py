@@ -11,6 +11,10 @@ attention and Griffin-Lim through their kernels, as it does in the JAX
 package.  Requests pad to the smallest input bucket that fits, as in the
 JAX package.
 
+The model is the one ``model.architecture`` names (models.create_model):
+Tacotron-1, or Tacotron 2, which also gives each row's stop frame; a row is
+then cut at the smaller of its stop frame and its endpoint.
+
 ``make_sharded_synth`` is pod-scale batch synthesis over a (data, model)
 mesh of ranks (parallel/), one process per mesh position: each rank
 decodes its shard of a global batch and every rank gets the global result.
@@ -61,9 +65,11 @@ class Synthesizer:
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.shards = param_shards(cfg, mesh) if mesh is not None else {}
         gen = torch.Generator().manual_seed(seed)
-        model = keep_shards(create_model("tacotron", cfg).reset_parameters(gen), self.shards)
+        model = keep_shards(create_model(cfg.model.architecture, cfg).reset_parameters(gen),
+                            self.shards)
         self.model = model.to(self.device).eval()
         self.ap = AudioProcessor(cfg.audio, self.device)
+        self.last_mel = None            # synthesize_batch's last decoder frames
 
     # -- loading -------------------------------------------------------------
 
@@ -92,9 +98,10 @@ class Synthesizer:
                          pad_to: int | None = None, gl_angles=None):
         """Returns (list of trimmed np wavs, alignments [B, steps, L]).
 
-        Each row's endpoint (``AudioProcessor.find_endpoint``'s, bit for bit)
-        is found on the device; the whole waveform, the endpoints and the
-        alignments come home in one copy (pinned memory on a CUDA device),
+        Each row's endpoint (``AudioProcessor.find_endpoint``'s, bit for bit,
+        or a model's stop frame × hop where that is smaller) is found on the
+        device; the whole waveform, the endpoints and the alignments come
+        home in one copy (pinned memory on a CUDA device),
         and each returned wav is a view of its row up to the endpoint.  The
         arrays of a call never share memory with another call's: on a CUDA
         device they hold the call's page-locked block (PyTorch's caching host
@@ -104,7 +111,9 @@ class Synthesizer:
         (tens of ms) where the allocator has none of that size free.
 
         ``seed`` seeds the prenet dropout masks and the Griffin-Lim initial
-        phases; ``gl_angles`` ([B, frames, bins]) replaces the latter."""
+        phases; ``gl_angles`` ([B, frames, bins]) replaces the latter.  The
+        call's decoder frames (mel [B, T, M] before the post-net, on the
+        device) stay in ``last_mel`` until the next call."""
         if self.shards:
             raise ValueError("this Synthesizer keeps only its rows of the speaker table "
                              "(mesh=): serve through make_sharded_synth")
@@ -128,9 +137,12 @@ class Synthesizer:
                 gen = torch.Generator(device=dev).manual_seed(seed)
                 angles = None if gl_angles is None else torch.as_tensor(
                     np.array(gl_angles, np.float32), device=dev)
-            wavs, aligns, _ = self._make_fn(iters)(inputs, lengths, sids, gen, angles)
+            wavs, aligns, self.last_mel, stops = self._make_fn(iters)(inputs, lengths, sids,
+                                                                      gen, angles)
             with tracing.span("synth.trim") as trim:
                 ends = self.ap.find_endpoints(wavs)
+                if stops is not None:
+                    ends = torch.minimum(ends, stops * cfg.audio.hop_length)
             with tracing.span("synth.copy"):
                 wavs, ends, aligns = _to_host(dev, wavs, ends, aligns)
             trim.note(rows_cut=int((ends < wavs.shape[1]).sum()),
@@ -141,11 +153,12 @@ class Synthesizer:
 
     def _make_fn(self, max_iters: int, model=None, speaker_embed_fn=None, cfg=None):
         """``fn(inputs, lengths, speaker_ids, generator, gl_angles) -> (wav
-        [B, samples], alignments [B, steps, L], mel [B, T, M])``: generate,
-        post-net and Griffin-Lim.  ``speaker_embed_fn(speaker_ids) -> [B, E]``
-        replaces the model's table lookup (the sharded table's gather);
-        ``model`` and ``cfg`` override the Synthesizer's for the mesh-routed
-        builds."""
+        [B, samples], alignments [B, steps, L], mel [B, T, M], stop frames
+        [B] or None)``: generate, post-net and Griffin-Lim; the stop frames
+        where the model gives them (Tacotron 2), else None.
+        ``speaker_embed_fn(speaker_ids) -> [B, E]`` replaces the model's
+        table lookup (the sharded table's gather); ``model`` and ``cfg``
+        override the Synthesizer's for the mesh-routed builds."""
         cfg = cfg or self.cfg
         model = model or self.model
         audio = cfg.audio
@@ -158,8 +171,8 @@ class Synthesizer:
                     spk = dict(speaker_ids=speaker_ids if cfg.model.num_speakers > 1 else None)
                 out = model.generate(inputs, lengths, **spk, max_iters=max_iters,
                                      generator=generator)
-                spec = out.linear_outputs.transpose(1, 2)             # [B, bins, T]
-                with tracing.span("synth.griffin_lim", device=spec.device):
+                with tracing.span("synth.griffin_lim", device=out.mel_outputs.device):
+                    spec = out.linear_outputs.transpose(1, 2)         # [B, bins, T]
                     wav = dsp.inv_linear_spectrogram(
                         spec, self.ap.params, preemph=audio.preemphasis,
                         ref_level_db=audio.ref_level_db, min_level_db=audio.min_level_db,
@@ -167,7 +180,7 @@ class Synthesizer:
                         generator=generator, gl_method=audio.gl_method,
                         gl_momentum=audio.gl_momentum, use_pallas=cfg.parallel.use_pallas,
                         angles=gl_angles)
-            return wav, out.alignments, out.mel_outputs
+            return wav, out.alignments, out.mel_outputs, getattr(out, "stop_frames", None)
 
         return fn
 
@@ -255,7 +268,7 @@ class Synthesizer:
                 angles = None if gl_angles is None else torch.as_tensor(
                     gl_angles[mine], dtype=torch.float32, device=dev)
                 gen = _fold_generator(seed, index, dev)
-                wav, align, mel = run(inputs[mine], lengths, sids, gen, angles)
+                wav, align, mel, _ = run(inputs[mine], lengths, sids, gen, angles)
                 with torch.inference_mode(), tracing.span("synth.gather"):
                     if seq:                       # alignments: this rank's slice of L
                         align = all_gather(align, 2, mesh.model_group)

@@ -3,18 +3,21 @@ trainer's profile window.
 
 ``span(name, device=None, **attrs)`` marks a stage of the work.  Spans are
 on exactly while a ``torch.profiler`` (or ``torch.autograd.profiler``)
-session runs in the process; otherwise ``span`` returns one shared no-op
-object and costs a function call.  An open span
+session runs in the process, or inside ``record()``, which turns them on
+with no profiler (host intervals and device-stream ms from the events
+alone, without the profiler's cost at each launch); otherwise ``span``
+returns one shared no-op object and costs a function call.  An open span
 
-* enters ``record_function(name)``, so the stage appears in the profiler's
-  trace on the clock of the device activity (a device idle gap is put down
-  to the innermost span over it);
+* under a profiler, enters ``record_function(name)``, so the stage appears
+  in the profiler's trace on the clock of the device activity (a device
+  idle gap is put down to the innermost span over it);
 * takes its host interval from ``time.perf_counter_ns``;
 * on a CUDA device (``device``, or its parent's), records a timing event
   pair on the device's current stream; nothing waits for them until the
   records are read;
 * when it closes, appends a :class:`SpanRecord` to this process's list:
-  its name, host interval, device-stream ms, parent, root and ``attrs``.
+  its name, host interval, device-stream ms, parent, root and ``attrs``
+  (an attribute noted as a device tensor is read when the records are).
 
 Spans nest per thread.  ``spans()`` returns the finished records with the
 device times resolved (one synchronize), ``clear()`` empties the list, and
@@ -22,7 +25,10 @@ device times resolved (one synchronize), ``clear()`` empties the list, and
 
 The synthesis path's spans (all under one ``synth.call`` root a call):
 ``synth.prepare`` (texts to padded device tensors), ``synth.encoder``,
-``synth.decode``, ``synth.postnet``, ``synth.griffin_lim``, ``synth.trim``
+``synth.decode`` (Tacotron 2's notes ``steps`` and ``replays``, the CUDA
+graph replays), Tacotron 2's ``synth.stop`` (each row's stop frame; it notes
+``rows_stopped``), ``synth.postnet``, ``synth.griffin_lim`` (Tacotron 2's
+holds ``synth.mel_to_linear``), ``synth.trim``
 (the launches of each row's endpoint search on the device; it notes
 ``rows_cut``, the rows cut short, and ``kept``, the share of the decoded
 samples returned), ``synth.copy`` (the copies to pinned host memory and the
@@ -36,6 +42,7 @@ window; ``device_busy`` and ``idle_by_span`` reduce a finished profile.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import threading
@@ -85,6 +92,7 @@ class _Off:
 
 
 OFF = _Off()
+_recording = 0                   # open record() blocks
 _records: list[SpanRecord] = []
 _ids = itertools.count(1)
 _local = threading.local()
@@ -119,8 +127,10 @@ class _Span:
             self.device = up.device
         elif self.device is not None:
             self.device = torch.device(self.device)
-        self._rf = _profiler.record_function(self.name)
-        self._rf.__enter__()
+        self._rf = None
+        if _profiler._is_profiler_enabled:
+            self._rf = _profiler.record_function(self.name)
+            self._rf.__enter__()
         self._ev0 = None
         if self.device is not None and self.device.type == "cuda":
             self._ev0 = torch.cuda.Event(enable_timing=True)
@@ -137,7 +147,8 @@ class _Span:
             ev1.record(torch.cuda.current_stream(self.device))
             events = (self._ev0, ev1, self.device)
         _stack().pop()
-        self._rf.__exit__(*exc)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         _records.append(SpanRecord(self.name, self.id, self.parent, self.root, self._t0, t1,
                                    self.attrs, _events=events))
         return False
@@ -148,9 +159,20 @@ def span(name: str, device=None, **attrs):
     ``device``: the torch device its work runs on (default: the enclosing
     span's).  ``attrs`` are kept on the record; ``note(**attrs)`` adds more
     inside the span."""
-    if not _profiler._is_profiler_enabled:
+    if not (_recording or _profiler._is_profiler_enabled):
         return OFF
     return _Span(name, device, attrs)
+
+
+@contextlib.contextmanager
+def record():
+    """Spans on for the block with no profiler running."""
+    global _recording
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
 
 
 def spans() -> list[SpanRecord]:
@@ -162,6 +184,10 @@ def spans() -> list[SpanRecord]:
     for r in pending:
         r.device_ms = r._events[0].elapsed_time(r._events[1])
         r._events = None
+    for r in recs:
+        for k, v in r.attrs.items():
+            if isinstance(v, torch.Tensor):       # noted on the device, read now
+                r.attrs[k] = v.item()
     return recs
 
 

@@ -278,7 +278,7 @@ def _checkpoint_and_eval(ckpt, state, step, synth, batch, cfg, log_dir, writer=N
         dev = synth.device
         row = lambda a: torch.as_tensor(a[:1], device=dev).long()
         fn = synth._make_fn(cfg.model.max_iters)
-        wav, aligns, _ = fn(row(batch.inputs), row(batch.input_lengths),
+        wav, aligns, _, _ = fn(row(batch.inputs), row(batch.input_lengths),
                             row(batch.speaker_ids), torch.Generator(device=dev).manual_seed(0))
         synth.ap.save_wav(wav[0].cpu().numpy(), os.path.join(log_dir, f"step-{step}-audio.wav"))
         align = aligns[0].cpu().numpy()

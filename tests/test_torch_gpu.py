@@ -1380,7 +1380,7 @@ def test_sequence_sharded_synth_on_card_matches_unsharded(cuda):
         torch.as_tensor(inputs, device=cuda), torch.as_tensor(lengths, device=cuda),
         torch.as_tensor(sids, device=cuda), torch.Generator(device=cuda),
         torch.as_tensor(angles, device=cuda))
-    wav_r, al_r, mel_r = (t.cpu().numpy() for t in ref)
+    wav_r, al_r, mel_r = (t.cpu().numpy() for t in ref[:3])
     for (wav, al, mel), launches in outs:
         assert launches == (iters, 0)
         np.testing.assert_allclose(mel, mel_r, atol=2e-3)

@@ -1,6 +1,7 @@
 """The port's spans (``tacotron_multispeaker_torch.tracing``) on the CPU,
 ``tiny`` preset: nothing recorded and no ``record_function`` entered
-without a profiler; under one, a ``synthesize_batch`` call's spans nest
+without a profiler, and records but no ``record_function`` inside
+``tracing.record()``; under a profiler, a ``synthesize_batch`` call's spans nest
 under one ``synth.call`` root, agree with the profiler's own events, and
 feed the benchmark's per-call readers; the profile window's idle time by
 innermost host span.  Also what ``synthesize_batch`` returns: each row is
@@ -66,6 +67,21 @@ def test_without_a_profiler_nothing_is_entered_or_recorded(synth, monkeypatch):
     with off as s:
         s.note(bucket=32)
     assert tracing.spans() == []
+
+
+def test_record_turns_the_spans_on_without_a_profiler(synth, monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered without a profiler")
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    tracing.clear()
+    with tracing.record():
+        synth.synthesize_batch(TEXTS, SPEAKERS, seed=1, pad_to=32)
+    recs = tracing.spans()
+    root, = [r for r in recs if r.name == "synth.call"]
+    assert [r.name for r in recs if r.parent == root.id] == CHILDREN
+    assert root.attrs == {"rows": 2, "bucket": 32}
+    assert tracing.span("synth.call") is tracing.OFF        # off again after the block
+    tracing.clear()
 
 
 def test_call_spans_nest_under_one_root(synth):
