@@ -19,6 +19,15 @@ runs as DFT matrix products (methods
   matrices and the synthesis window into the inverse ones (exact: the
   dropped columns multiply zeros).
 
+The ``dft_*`` library products carry the spectrum at :func:`gl_bins`, the
+n_fft//2 + 1 bins rounded up to a multiple of 8 (1,032 for n_fft 2048): at
+1,025 bins no bf16 row of the spectra or the DFT matrices is a multiple of
+16 bytes, and cuBLAS then runs its slow kernels for misaligned operands.
+The padded bins are exact zeros throughout (zero magnitude, so a zero
+scale), so every product computes the same sums.  The initial phases, the
+fused kernel's input and outputs, ``ct_*``, ``fft`` and
+``spectrogram_targets`` keep n_fft//2 + 1 bins.
+
 ``use_pallas`` (the JAX package's ``parallel.use_pallas``) routes as the
 JAX package does: ``dft_bf16`` and ``dft_mix`` run their fast bf16
 iterations through the Griffin-Lim kernel (ops/gl_iteration.py), which takes
@@ -439,18 +448,38 @@ def _idft_ct(re: torch.Tensor, im: torch.Tensor, n_fft: int, dtype: torch.dtype)
 POLISH_ITERS = 3  # "mix": the last iterations run at the polish precision
 
 
+def gl_bins(n_fft: int, method: str = "dft_f32") -> int:
+    """The spectrum width Griffin-Lim's products run at for ``method``: for
+    ``dft_*``, the n_fft//2 + 1 bins rounded up to a multiple of 8 (1032 for
+    n_fft 2048), so that every row of the spectra and of the DFT matrices is
+    a multiple of 16 bytes in bf16 and of 32 in float32 (at 1025 bins the
+    library's products fall back to kernels for misaligned operands, several
+    times slower); the bins of ``ct_*`` (on a power-of-two n_fft) and
+    ``fft``, which pad nothing."""
+    bins = n_fft // 2 + 1
+    algo = method.partition("_")[0]
+    if algo == "fft" or (algo == "ct" and not n_fft & (n_fft - 1)):
+        return bins
+    return -(-bins // 8) * 8
+
+
 @functools.lru_cache(maxsize=16)
 def _gl_constants(n_fft: int, win_length: int, device: torch.device,
                   dtype: torch.dtype = torch.float32, windowed: bool = True):
     """(window, (C, S, iC, iS)) on ``device``, built once: the window-support
     matrices and window when ``windowed`` and win_length < n_fft, else the
-    full-frame ones."""
+    full-frame ones; C and S with zero columns and iC and iS with zero rows
+    up to :func:`gl_bins` (the products' sums are the same)."""
     if windowed and win_length < n_fft:
         mats = _dft_win_matrices(n_fft, win_length)
         window = hann_window(win_length, win_length)
     else:
         mats = _dft_matrices(n_fft)
         window = hann_window(win_length, n_fft)
+    pad = gl_bins(n_fft) - (n_fft // 2 + 1)
+    C, S, iC, iS = mats
+    mats = (np.pad(C, ((0, 0), (0, pad))), np.pad(S, ((0, 0), (0, pad))),
+            np.pad(iC, ((0, pad), (0, 0))), np.pad(iS, ((0, pad), (0, 0))))
     to_dev = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)
     return to_dev(window), tuple(to_dev(m) for m in mats)
 
@@ -475,7 +504,11 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
 
     ``use_pallas``: the kernels and their layouts (module docstring).
     ``ct_*`` runs the factorised transforms, ``fft`` the classic
-    formulation (:func:`_griffin_lim_fft`).
+    formulation (:func:`_griffin_lim_fft`).  ``dft_*`` pads the magnitude
+    with zero bins to :func:`gl_bins` once the initial phases are drawn, and
+    the fused kernel's spectra once they are back, so that the library
+    products read 16-byte rows (module docstring); the waveform differs from
+    the unpadded formulation's only by the products' sum order.
     """
     if method == "fft":
         return _griffin_lim_fft(magnitude, params, n_iters, generator, momentum, angles,
@@ -504,9 +537,13 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
 
     magT = magnitude.transpose(-1, -2).float()              # [..., F, bins]
     batch_shape = magT.shape[:-2]
-    nF = magT.shape[-2]
+    nF, bins = magT.shape[-2:]
     out_len = Wn + hop * (nF - 1)
-    magT_flat = magT.reshape(-1, nF, magT.shape[-1])
+    magT_flat = magT.reshape(-1, nF, bins)
+    # the products' spectra carry zero columns up to their aligned width:
+    # |S| is 0 there, so the scale is 0 and they stay exact zeros
+    width = gl_bins(n_fft, method)
+    pad = lambda t: torch.nn.functional.pad(t, (0, width - bins)) if width > bins else t
 
     def fwd(frames, dt):
         if ct:
@@ -537,7 +574,7 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
 
     def iterate(carry, n, dt):
         sig, pre, pim = carry
-        mag_s = magT_flat.to(dt)
+        mag_s = mag_p.to(dt)
         mom_s = torch.tensor(mom, dtype=dt, device=dev)
         for _ in range(n):
             re, im = fwd(frame(sig, dt), dt)
@@ -552,8 +589,9 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
         angles = (torch.rand(magT.shape, generator=generator, device=dev)
                   * (2.0 * math.pi) - math.pi)
     a = angles.to(dev).float().reshape(magT_flat.shape)
-    sig = ola(magT_flat * torch.cos(a), magT_flat * torch.sin(a), dtype)
-    z = torch.zeros_like(magT_flat)
+    sig = ola(pad(magT_flat * torch.cos(a)), pad(magT_flat * torch.sin(a)), dtype)
+    mag_p = pad(magT_flat)
+    z = torch.zeros_like(mag_p)
 
     # the kernel's n fast bf16 iterations from the initial frames → (sre,
     # sim, pre, pim); the overlap-add of (sre, sim) stays plain, as in JAX
@@ -563,7 +601,7 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
     if prec == "mix":
         n_fast = max(n_iters - POLISH_ITERS, 0)
         if fuse_fast and n_fast > 0:
-            sre, sim, pre, pim = fast_kernel(n_fast)
+            sre, sim, pre, pim = map(pad, fast_kernel(n_fast))
             carry = (ola(sre, sim, torch.float32), pre, pim)
         else:
             sig, pre, pim = iterate((sig, z.to(dtype), z.to(dtype)), n_fast, dtype)
@@ -571,7 +609,7 @@ def griffin_lim(magnitude: torch.Tensor, params: STFTParams, n_iters: int,
         sig, _, _ = iterate(carry, n_iters - n_fast, torch.float32)
     elif fuse_fast:
         sre, sim, _, _ = fast_kernel(n_iters)
-        sig = ola(sre, sim, dtype)
+        sig = ola(pad(sre), pad(sim), dtype)
     else:
         sig, _, _ = iterate((sig, z.to(dtype), z.to(dtype)), n_iters, dtype)
     # crop the centered-analysis padding; in the window-support layout the

@@ -171,7 +171,8 @@ class Synthesizer:
                     spk = dict(speaker_ids=speaker_ids if cfg.model.num_speakers > 1 else None)
                 out = model.generate(inputs, lengths, **spk, max_iters=max_iters,
                                      generator=generator)
-                with tracing.span("synth.griffin_lim", device=out.mel_outputs.device):
+                with tracing.span("synth.griffin_lim", device=out.mel_outputs.device) as gl:
+                    gl.note(gl_bins=dsp.gl_bins(self.ap.params.n_fft, audio.gl_method))
                     spec = out.linear_outputs.transpose(1, 2)         # [B, bins, T]
                     wav = dsp.inv_linear_spectrogram(
                         spec, self.ap.params, preemph=audio.preemphasis,

@@ -27,8 +27,9 @@ The synthesis path's spans (all under one ``synth.call`` root a call):
 ``synth.prepare`` (texts to padded device tensors), ``synth.encoder``,
 ``synth.decode`` (Tacotron 2's notes ``steps`` and ``replays``, the CUDA
 graph replays), Tacotron 2's ``synth.stop`` (each row's stop frame; it notes
-``rows_stopped``), ``synth.postnet``, ``synth.griffin_lim`` (Tacotron 2's
-holds ``synth.mel_to_linear``), ``synth.trim``
+``rows_stopped``), ``synth.postnet``, ``synth.griffin_lim`` (it notes
+``gl_bins``, the spectrum width its products run at, ``audio.dsp.gl_bins``;
+Tacotron 2's holds ``synth.mel_to_linear``), ``synth.trim``
 (the launches of each row's endpoint search on the device; it notes
 ``rows_cut``, the rows cut short, and ``kept``, the share of the decoded
 samples returned), ``synth.copy`` (the copies to pinned host memory and the

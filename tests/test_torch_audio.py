@@ -301,3 +301,68 @@ def test_ct_transforms_and_non_power_of_two_fallback():
     for prec in ("f32", "bf16"):
         assert torch.equal(tdsp.griffin_lim(mag, p, 3, method=f"ct_{prec}", angles=a),
                            tdsp.griffin_lim(mag, p, 3, method=f"dft_{prec}", angles=a))
+
+
+@pytest.mark.parametrize("windowed", [True, False])
+@pytest.mark.parametrize("n_fft,win", [(256, 200), (1024, 800), (2048, 1102)])
+def test_griffin_lim_constants_carry_zero_bins_to_an_aligned_width(n_fft, win, windowed):
+    # the dft_* products run at gl_bins: bins rounded up to 8 (16-byte bf16
+    # rows); C and S gain zero columns and iC and iS zero rows, in both
+    # layouts and both dtypes, and the bins they had are the DFT's unchanged
+    bins = n_fft // 2 + 1
+    width = tdsp.gl_bins(n_fft)
+    assert width % 8 == 0 and bins <= width < bins + 8
+    assert tdsp.gl_bins(n_fft, "dft_mix") == width
+    assert tdsp.gl_bins(n_fft, "ct_f32") == tdsp.gl_bins(n_fft, "fft") == bins
+    ref = (tdsp._dft_win_matrices(n_fft, win) if windowed else tdsp._dft_matrices(n_fft))
+    for dtype in (torch.float32, torch.bfloat16):
+        _, mats = tdsp._gl_constants(n_fft, win, torch.device("cpu"), dtype, windowed)
+        C, S, iC, iS = mats
+        rows = win if windowed else n_fft
+        assert C.shape == S.shape == (rows, width) and iC.shape == iS.shape == (width, rows)
+        for m, r in zip((C, S), ref[:2]):
+            assert torch.equal(m[:, :bins], torch.from_numpy(r).to(dtype))
+            assert not m[:, bins:].any()
+        for m, r in zip((iC, iS), ref[2:]):
+            assert torch.equal(m[:bins], torch.from_numpy(r).to(dtype))
+            assert not m[bins:].any()
+    # ct on a non-power-of-two n_fft runs dft_*, so it pads too
+    assert tdsp.gl_bins(240, "ct_bf16") == tdsp.gl_bins(240) == 128
+
+
+@pytest.mark.parametrize("method,use_pallas", [("dft_f32", False), ("dft_mix", False),
+                                               ("dft_mix", True), ("ct_bf16", False)])
+def test_griffin_lim_draws_its_initial_phases_at_frames_by_bins(method, use_pallas):
+    # the padding comes after the draw: a generator gives the waveform of
+    # the angles drawn from it at [B, frames, bins], bit for bit
+    mag = torch.from_numpy(np.random.RandomState(5).uniform(0.0, 2.0, (2, 129, 7))
+                           .astype(np.float32))
+    p = tdsp.STFTParams(256, 64, 200)
+    kw = dict(method=method, momentum=0.99, use_pallas=use_pallas)
+    y_gen = tdsp.griffin_lim(mag, p, 4, torch.Generator().manual_seed(9), **kw)
+    angles = (torch.rand((2, 7, 129), generator=torch.Generator().manual_seed(9))
+              * (2.0 * math.pi) - math.pi)
+    assert torch.equal(y_gen, tdsp.griffin_lim(mag, p, 4, angles=angles, **kw))
+
+
+def test_spectrogram_targets_read_the_unpadded_window_support_dft():
+    # the training targets keep n_fft//2 + 1 bins and the unpadded DFT
+    # pair, bit for bit, with Griffin-Lim's padded constants built beside them
+    rs = np.random.RandomState(6)
+    p = tdsp.STFTParams(2048, 275, 1102)
+    tdsp.griffin_lim(torch.ones(1, 1025, 3), p, 1, method="dft_bf16",
+                     generator=torch.Generator().manual_seed(0))
+    y = torch.from_numpy(rs.uniform(-0.5, 0.5, (2, 4000)).astype(np.float32))
+    kw = dict(sample_rate=22050, num_mels=80, preemph=0.97, ref_level_db=20.0,
+              min_level_db=-100.0)
+    mel, lin = tdsp.spectrogram_targets(y, p, **kw)
+    yp = torch.nn.functional.pad(tdsp.preemphasis(y, 0.97).reshape(1, 2, -1), (1024, 1024),
+                                 mode="reflect").reshape(2, -1)
+    frames = yp[:, 473:].unfold(-1, 1102, 275)[:, :1 + (yp.shape[-1] - 2048) // 275]
+    Cw, Sw, _, _ = (torch.from_numpy(m) for m in tdsp._dft_win_matrices(2048, 1102))
+    re, im = frames @ Cw, frames @ Sw
+    mag = torch.sqrt(re * re + im * im)
+    basis = torch.from_numpy(tdsp.mel_basis(22050, 2048, 80).T.copy())
+    assert lin.shape == (2, frames.shape[1], 1025)
+    assert torch.equal(lin, tdsp.normalize_db(tdsp.amp_to_db(mag) - 20.0, -100.0))
+    assert torch.equal(mel, tdsp.normalize_db(tdsp.amp_to_db(mag @ basis) - 20.0, -100.0))

@@ -1521,6 +1521,49 @@ def test_griffin_lim_fft_and_ct_kernel_route_matches_plain_on_card(cuda, method)
 
 
 @pytest.mark.gpu
+def test_griffin_lim_products_run_at_the_aligned_width_on_card(cuda, monkeypatch):
+    # pod_synth_b64's Griffin-Lim: B=64 x 2,000 frames, n_fft 2048, the
+    # window support (1000 samples, hop 250), 15 fast iterations on the
+    # library products (use_pallas=False).  At gl_bins = 1,032 no product
+    # runs on cuBLAS's kernels for misaligned rows (cutlass_75 ... s1688, the
+    # Turing mma.sync tiles that 1,025 bins took).  The zero bins add exact
+    # zeros: dft_f32 gives the unpadded formulation's waveform to 1e-5 of its
+    # peak (measured equal).  dft_mix's twelve bf16 iterations carry another
+    # kernel's sum order chaotically where |S| ~ 0 (measured mean 1.1e-2 of
+    # the peak), so it is held by its spectral convergence to the magnitude
+    # instead: within 1 % of the unpadded formulation's
+    from torch.profiler import ProfilerActivity, profile
+    from tacotron_multispeaker_torch.audio import dsp
+    p = dsp.STFTParams(2048, 250, 1000)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    mag = torch.rand((64, 1025, 2000), generator=g, device=cuda) * 2.0
+    angles = torch.rand((64, 2000, 1025), generator=g, device=cuda) * (2 * math.pi) - math.pi
+    run = lambda method: dsp.griffin_lim(mag, p, 15, method=method, momentum=0.99,
+                                         angles=angles)
+    convergence = lambda y: float(torch.linalg.vector_norm(dsp.stft(y, p).abs() - mag)
+                                  / torch.linalg.vector_norm(mag))
+    run("dft_mix")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y_mix = run("dft_mix")
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("gemm" in n or "nvjet" in n for n in names), sorted(names)
+    assert not [n for n in names if "cutlass_75" in n or "s1688" in n]
+    y_f32 = run("dft_f32")
+    monkeypatch.setattr(dsp, "gl_bins", lambda n_fft, method="dft_f32": n_fft // 2 + 1)
+    dsp._gl_constants.cache_clear()
+    try:
+        y0_mix, y0_f32 = run("dft_mix"), run("dft_f32")
+    finally:
+        dsp._gl_constants.cache_clear()
+    assert y_mix.shape == y0_mix.shape == (64, 250 * 1999) and torch.isfinite(y_mix).all()
+    assert (y_f32 - y0_f32).abs().max() <= 1e-5 * y0_f32.abs().max()
+    sc, sc0 = convergence(y_mix), convergence(y0_mix)
+    assert abs(sc - sc0) <= 0.01 * sc0, (sc, sc0)
+
+
+@pytest.mark.gpu
 def test_location_attention_train_step_launches_on_card(cuda):
     # location attention trains through the per-step loop: per step the two
     # BiGRU forwards (kernel 3) and backwards (kernel 4, prologue and scan)

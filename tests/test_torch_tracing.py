@@ -93,6 +93,8 @@ def test_call_spans_nest_under_one_root(synth):
     assert root.attrs == {"rows": 2, "bucket": 32}
     kids = [r for r in recs if r.parent == root.id]
     assert [r.name for r in kids] == CHILDREN
+    # the width of Griffin-Lim's products: the tiny preset's 513 bins to 520
+    assert kids[CHILDREN.index("synth.griffin_lim")].attrs == {"gl_bins": 520}
     by_id = {r.id: r for r in recs}
     for r in recs:
         assert r.root == root.id and r.device_ms is None
